@@ -1,0 +1,100 @@
+"""The PyTorch port stands alone: no jax, flax or gnnla_tpu imports in
+gnnla_tpu_torch or chip_smoke.py, and no quiet CPU fallback."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gnnla_tpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "gnnla_tpu_torch")):
+        out += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_files_found():
+    files = [os.path.relpath(p, ROOT) for p in _port_files()]
+    for must in ("chip_smoke.py", "gnnla_tpu_torch/models/vcycle.py",
+                 "gnnla_tpu_torch/ops/dia_spmv.py",
+                 "gnnla_tpu_torch/ops/stream_spmv.py"):
+        assert must in files
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_gnnla_tpu_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys, gnnla_tpu_torch.models.vcycle, "
+            "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from gnnla_tpu_torch.models.vcycle import setup_from_numpy
+    from gnnla_tpu_torch.ops.sparse import SparseOperator
+    from gnnla_tpu_torch.problems import laplacian_2d
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        laplacian_2d(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SparseOperator.from_coo([0], [0], [1.0], (1, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        setup_from_numpy({})
+    # asked for explicitly, the CPU runs the plain versions
+    assert laplacian_2d(4, device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The raw launchers never run the plain version: only the operator
+    wrappers pick it, and only for CPU tensors."""
+    from gnnla_tpu_torch.ops.dia_spmv import dia_spmv_cuda
+    from gnnla_tpu_torch.ops.stream_spmv import csr_spmv_cuda
+
+    x = torch.zeros(4)
+    with pytest.raises(ValueError, match="not CUDA"):
+        dia_spmv_cuda(torch.zeros(1, 4), torch.zeros(1, dtype=torch.int32), x)
+    with pytest.raises(ValueError, match="not CUDA"):
+        csr_spmv_cuda(torch.zeros(5, dtype=torch.int32),
+                      torch.zeros(0, dtype=torch.int32), torch.zeros(0), x, 4)
+
+
+def test_build_is_lazy():
+    """Importing every port module (and chip_smoke) builds and loads no
+    kernel, so the CPU needs no nvcc."""
+    code = ("import chip_smoke, gnnla_tpu_torch.models.vcycle, "
+            "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op; "
+            "from gnnla_tpu_torch import _build; "
+            "raise SystemExit(0 if _build._lib is None else 1)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stdout + p.stderr
