@@ -23,7 +23,7 @@ from typing import List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("dia_spmv.cu", "csr_spmv.cu")
+SOURCES = ("dia_spmv.cu", "csr_spmv.cu", "stencil.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC"]
 
@@ -52,8 +52,8 @@ def _digest() -> str:
 
 def _compile(nvcc: str, lib_path: str, log_path: str) -> List[str]:
     """Compile every source in parallel, link, and return the ptxas
-    report lines (registers, shared memory, spills per kernel), which are
-    also kept beside the library."""
+    report lines (registers, shared memory, stack and spills per kernel),
+    which are also kept beside the library."""
     tag = f"{os.getpid()}"
     objs, procs = [], []
     for name in SOURCES:
@@ -66,7 +66,8 @@ def _compile(nvcc: str, lib_path: str, log_path: str) -> List[str]:
     report, failed = [], []
     for name, p in procs:
         out, _ = p.communicate()
-        report += [ln for ln in out.splitlines() if "ptxas" in ln]
+        report += [ln.strip() for ln in out.splitlines()
+                   if "ptxas" in ln or "spill" in ln]
         if p.returncode != 0:
             failed.append(f"{name}:\n{out}")
     if failed:
@@ -110,6 +111,9 @@ def load(force: bool = False) -> ctypes.CDLL:
     lib.dia_spmv_f32.argtypes = [vp, vp, ci, ci, vp, vp, vp]
     lib.csr_spmv_f32.restype = ci
     lib.csr_spmv_f32.argtypes = [vp, vp, vp, ci, vp, vp, vp]
+    lib.stencil_f32.restype = ci
+    lib.stencil_f32.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp,
+                                ci, ci, ci, vp]
     _info.update(path=lib_path, built=built, ptxas=report,
                  seconds=time.perf_counter() - t0)
     _lib = lib

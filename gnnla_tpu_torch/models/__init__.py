@@ -1,2 +1,22 @@
-"""Solver compositions: residual, Jacobi, Chebyshev and the two-grid
-V-cycle (the fused forms)."""
+"""Solver compositions: residual, Jacobi, Chebyshev, the two-grid V-cycle
+(the fused forms) and its grid paths."""
+
+from gnnla_tpu_torch.models.chebyshev import chebyshev
+from gnnla_tpu_torch.models.geometric import (GeometricVCycle,
+                                              make_geometric_vcycle)
+from gnnla_tpu_torch.models.jacobi import jacobi
+from gnnla_tpu_torch.models.residual import residual
+from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid, StencilVCycle,
+                                           TwoGridSetup, make_stencil_vcycle,
+                                           setup_auto, setup_from_numpy,
+                                           setup_twogrid, setup_with_dia,
+                                           setup_with_stream,
+                                           setup_with_stream_p, solve, vcycle)
+
+__all__ = [
+    "residual", "jacobi", "chebyshev",
+    "TwoGridSetup", "setup_twogrid", "setup_from_numpy", "setup_with_dia",
+    "setup_with_stream", "setup_with_stream_p", "setup_auto", "AutoTwoGrid",
+    "vcycle", "solve", "StencilVCycle", "make_stencil_vcycle",
+    "GeometricVCycle", "make_geometric_vcycle",
+]

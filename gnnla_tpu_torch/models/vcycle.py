@@ -8,9 +8,16 @@ solve, prolongation of the correction and Jacobi post-smoothing. `solve`
 iterates cycles in a Python loop (the JAX package's `lax.scan`).
 
 Fast path: `setup_with_dia(setup, kernel=True)` puts A and Ac on kernel
-K1 (the DIA SpMV) and `setup_with_stream_p` puts P and P^T on kernel K2
-(the CSR SpMV). Every solver only uses the matvec/rmatvec/diagonal
-protocol, so the same `vcycle` runs on either path.
+K1 (the DIA SpMV), `setup_with_stream_p` puts P and P^T on kernel K2 (the
+CSR SpMV), and `setup_with_stream` puts an unstructured A on K2 in RCM
+order. Every solver only uses the matvec/rmatvec/diagonal protocol, so the
+same `vcycle` runs on any of them.
+
+Grid path: `StencilVCycle` runs the fine level of a cycle (pre-smoothing,
+residual, post-smoothing) on kernel K4, the fused stencil. `AutoTwoGrid` /
+`setup_auto` pick the fastest layout an operator admits (stencil > dia >
+stream > coo); `models/geometric.py::GeometricVCycle` is the all-stencil
+semi-coarsened cycle.
 
 `setup_from_numpy` builds a setup from plain numpy arrays — the way a
 setup made elsewhere (for instance by the JAX package, or one carrying a
@@ -20,6 +27,7 @@ trained Jacobi diagonal) is carried across.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -35,14 +43,19 @@ from gnnla_tpu_torch.models.residual import residual
 from gnnla_tpu_torch.ops.dia import DIAOperator, to_dia
 from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
 from gnnla_tpu_torch.ops.sparse import SparseOperator
-from gnnla_tpu_torch.ops.stream_op import rect_stream_operator
+from gnnla_tpu_torch.ops.stencil import stencil_classes
+from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
+                                                make_stencil_residual)
+from gnnla_tpu_torch.ops.stream_op import (rect_stream_operator,
+                                           stream_operator)
 
 
 @dataclasses.dataclass(frozen=True)
 class TwoGridSetup:
     """Fixed-pattern artifacts of the AMG setup phase, on one device."""
 
-    A: Any    # SparseOperator | DIAOperator | DiaKernelOperator
+    A: Any    # SparseOperator | DIAOperator | DiaKernelOperator |
+              # StreamOperator
     P: Any    # SparseOperator | RectStreamOperator
     Ac: Any   # SparseOperator | DIAOperator | DiaKernelOperator
     diag: torch.Tensor          # diag(A) — or a trained Jacobi diagonal
@@ -206,6 +219,89 @@ def setup_with_stream_p(setup: TwoGridSetup) -> TwoGridSetup:
     return dataclasses.replace(setup, P=P_s)
 
 
+def setup_with_stream(setup: TwoGridSetup) -> TwoGridSetup:
+    """Swap the fine operator A for its kernel-K2 twin in RCM order
+    (`StreamOperator` with perm/iperm gathers) — the fast path for
+    unstructured graphs, where `setup_with_dia` refuses or degrades. Ac
+    stays COO. Raises ValueError where the JAX packer refuses the
+    RCM-ordered pattern. The JAX package's `backend`/`interpret` options
+    have no counterpart: the port has one backend."""
+    if not isinstance(setup.A, SparseOperator):
+        raise ValueError("setup.A already swapped; build the stream twin "
+                         "from the COO setup")
+    return dataclasses.replace(setup, A=stream_operator(setup.A))
+
+
+class StencilVCycle:
+    """Two-grid cycle with the fine level on kernel K4 (the fused stencil).
+
+    For grid operators the fine-level work of a cycle — pre-smoothing,
+    residual, post-smoothing — runs as three K4 calls (n_pre fused Jacobi
+    sweeps, one fused r = b - A x, n_post fused sweeps); the coarse
+    correction (P^T r -> Chebyshev on Ac -> P xc) stays on the COO path,
+    with Ac swapped to its plain DIA twin when `coarse_dia` and banded
+    enough (the JAX package's `to_dia` swap, which it runs in XLA too).
+
+    Numerics match `vcycle(setup, ...)` with the same parameters: the
+    smoother taps M = I - omega D^-1 A are built in float64 on the host,
+    so only f32 rounding differs. The smoothing parameters are baked into
+    the taps; build a new object to change them.
+
+    K4 launches per cycle: n_pre + 1 + n_post (7 with the defaults)."""
+
+    def __init__(self, setup: TwoGridSetup, grid_shape, *, n_pre: int = 3,
+                 n_post: int = 3, omega: float = 0.7, coarse_deg: int = 4,
+                 coarse_c: float = -3.4, coarse_d: float = -4.0,
+                 tap_dtype=None, coarse_dia: bool = True):
+        if not isinstance(setup.A, SparseOperator):
+            raise ValueError(
+                "StencilVCycle builds its taps from the COO setup; "
+                "construct it before setup_with_dia, not after")
+        if min(n_pre, n_post) < 1:
+            raise ValueError("n_pre and n_post must be >= 1")
+        if coarse_dia and isinstance(setup.Ac, SparseOperator):
+            try:
+                setup = dataclasses.replace(setup, Ac=to_dia(setup.Ac))
+            except ValueError:
+                pass  # too irregular — keep the COO path
+        h, w = grid_shape
+        self.grid_shape = (int(h), int(w))
+        self.setup = setup
+        self._coarse = dict(c=coarse_c, d=coarse_d, deg=coarse_deg)
+        self._pre = make_stencil_jacobi(
+            setup.A, self.grid_shape, omega=omega, n_iters=n_pre,
+            diag=setup.diag, tap_dtype=tap_dtype)
+        self._post = self._pre if n_post == n_pre else make_stencil_jacobi(
+            setup.A, self.grid_shape, omega=omega, n_iters=n_post,
+            diag=setup.diag, tap_dtype=tap_dtype)
+        self._res = make_stencil_residual(setup.A, self.grid_shape,
+                                          tap_dtype=tap_dtype)
+
+    def kernel_calls(self):
+        """The distinct K4 calls of a cycle (their `launches` counters)."""
+        calls = (self._pre._call, self._post._call, self._res._call)
+        return list({id(c): c for c in calls}.values())
+
+    def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One cycle on flat [n] vectors."""
+        P, Ac = self.setup.P, self.setup.Ac
+        b2 = b.reshape(self.grid_shape).float()
+        x2 = self._pre.run(b2, x.reshape(self.grid_shape))
+
+        rc = P.rmatvec(self._res.run(b2, x2).reshape(-1))
+        xc = chebyshev(Ac, rc, torch.zeros_like(rc), **self._coarse)
+        x2 = x2 + P.matvec(xc).reshape(self.grid_shape)
+
+        return self._post.run(b2, x2).reshape(-1)
+
+
+def make_stencil_vcycle(setup: TwoGridSetup, grid_shape,
+                        **kwargs) -> StencilVCycle:
+    """Fused fine-level two-grid cycle for grid operators (see
+    StencilVCycle)."""
+    return StencilVCycle(setup, grid_shape, **kwargs)
+
+
 def vcycle(setup: TwoGridSetup, b: torch.Tensor, x: torch.Tensor, *,
            n_pre: int = 3, n_post: int = 3, omega: float = 0.7,
            coarse_deg: int = 4, coarse_c: float = -3.4,
@@ -234,3 +330,110 @@ def solve(setup: TwoGridSetup, b: torch.Tensor, x: torch.Tensor, *,
     for _ in range(n_cycles):
         x = vcycle(setup, b, x, **cycle_kwargs)
     return x
+
+
+# --------------------------------------------------- automatic path choice
+def _infer_grid_shape(A: SparseOperator):
+    """(h, w) when A's pattern is a square-grid stencil, else None: the
+    vertex count is a square and every edge falls into at most MAX_TAPS
+    modular (dy, dx) shift classes."""
+    n = A.n_rows
+    h = math.isqrt(n)
+    if h * h != n:
+        return None
+    rows, cols, _ = A.host_coo()
+    try:
+        stencil_classes(rows, cols, h, h)
+    except ValueError:
+        return None
+    return (h, h)
+
+
+class AutoTwoGrid:
+    """Two-grid solver on the fastest layout this operator admits.
+
+    Probe order (each refuses with a ValueError, recorded in `why`):
+      stencil  the fine level on kernel K4 (`StencilVCycle`; square-grid
+               stencil patterns)
+      dia      the plain DIA layout (`setup_with_dia`; banded patterns)
+      stream   A on kernel K2 in RCM order (`setup_with_stream`; general
+               graphs of at least 4096 rows)
+      coo      always works
+
+    `layout` records the choice. `run(b, x)` is one cycle, `solve(b, x,
+    n_cycles=...)` several. The JAX package's `stream_backend` option has
+    no counterpart: the port has one backend. The JAX package's TPU VMEM
+    guard is not kept either, so on grids a TPU's VMEM cannot hold the
+    port picks "stencil" where the JAX package falls through to "dia"."""
+
+    def __init__(self, setup: TwoGridSetup, *, grid_shape=None,
+                 layouts=("stencil", "dia", "stream", "coo"),
+                 **cycle_kwargs):
+        if not isinstance(setup.A, SparseOperator):
+            raise ValueError("pass the plain COO setup (before any "
+                             "setup_with_* swap)")
+        self.cycle_kwargs = cycle_kwargs
+        self.why = {}
+        self._stencil = None
+        self.setup = setup
+        for lay in layouts:
+            try:
+                if lay == "stencil":
+                    gs = grid_shape or _infer_grid_shape(setup.A)
+                    if gs is None:
+                        raise ValueError("pattern is not a tensor-product "
+                                         "grid")
+                    self._stencil = StencilVCycle(setup, gs, **cycle_kwargs)
+                elif lay == "dia":
+                    swapped = setup_with_dia(setup)
+                    if isinstance(swapped.A, SparseOperator):
+                        raise ValueError("pattern not banded enough for "
+                                         "DIA")
+                    self.setup = swapped
+                elif lay == "stream":
+                    if setup.A.n_rows < 4096:
+                        raise ValueError(
+                            "operator too small for the stream kernel "
+                            "(single 1024-row tile dominates; COO wins)")
+                    self.setup = setup_with_stream(setup)
+                elif lay != "coo":
+                    raise ValueError(f"unknown layout {lay!r}")
+                self.layout = lay
+                break
+            except ValueError as e:
+                self.why[lay] = str(e)
+        else:
+            raise ValueError(f"no layout accepted this operator: "
+                             f"{self.why}")
+
+    def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One two-grid cycle on the chosen path."""
+        if self._stencil is not None:
+            return self._stencil.run(b, x)
+        return vcycle(self.setup, b, x, **self.cycle_kwargs)
+
+    def solve(self, b: torch.Tensor, x: torch.Tensor, *,
+              n_cycles: int) -> torch.Tensor:
+        if self._stencil is not None:
+            x = x.reshape(-1)
+            for _ in range(n_cycles):
+                x = self._stencil.run(b, x)
+            return x
+        return solve(self.setup, b, x, n_cycles=n_cycles,
+                     **self.cycle_kwargs)
+
+
+def setup_auto(A: SparseOperator, *, theta: float = 0.25,
+               splitting: str = "cljp", seed: int = 0,
+               diag=None, trunc: float = 0.0,
+               interp: str = "reference", grid_shape=None,
+               **cycle_kwargs) -> AutoTwoGrid:
+    """setup_twogrid + automatic layout choice in one call.
+
+    Returns an AutoTwoGrid whose `.layout` says which path won (stencil >
+    dia > stream > coo; pass `layouts=` to restrict the probes). Cycle
+    parameters (n_pre, n_post, omega, coarse_*) go in **cycle_kwargs; the
+    numerics match `vcycle` on the plain setup on every path."""
+    setup = setup_twogrid(A, theta=theta, splitting=splitting, seed=seed,
+                          diag=diag, trunc=trunc, interp=interp)
+    return AutoTwoGrid(setup, grid_shape=grid_shape, **cycle_kwargs)

@@ -2,11 +2,11 @@
 
 The port's own binding to the same `native/libgnnla_native.so` that
 gnnla_tpu.native_ext loads (importing that module would run
-gnnla_tpu/__init__.py and therefore jax). Only the entry point the
-two-grid slice uses is bound: CLJP splitting. When the library is
-missing the numpy CLJP of amg/splitting.py runs instead — the same
-fallback the JAX package takes, so both packages produce identical
-coarse flags.
+gnnla_tpu/__init__.py and therefore jax). Only the entry points the
+ported slices use are bound: CLJP splitting, and RCM ordering with the
+symmetric CSR permutation. When the library (or a symbol) is missing the
+callers run numpy/scipy instead — the same fallbacks the JAX package
+takes, so both packages produce identical coarse flags and orders.
 """
 
 from __future__ import annotations
@@ -33,6 +33,13 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.cljp_split.restype = None
     lib.cljp_split.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.c_uint64,
                                i64p]
+    if hasattr(lib, "rcm_order"):
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.rcm_order.restype = None
+        lib.rcm_order.argtypes = [ctypes.c_int64, i64p, i64p, i64p]
+        lib.csr_permute_sym.restype = None
+        lib.csr_permute_sym.argtypes = [ctypes.c_int64, i64p, i64p, f32p,
+                                        i64p, i64p, i64p, f32p]
     _lib = lib
     return lib
 
@@ -60,3 +67,45 @@ def cljp_split(S_csr, seed: int = 0) -> np.ndarray:
     lib.cljp_split(n, _i64p(indptr), _i64p(indices),
                    ctypes.c_uint64(seed), _i64p(out))
     return out
+
+
+def rcm_order(A_csr) -> Optional[np.ndarray]:
+    """Reverse Cuthill-McKee permutation of a CSR matrix
+    (native/graphbuild.cpp::rcm_order); None when the library or the
+    symbol is missing (callers then use scipy's reverse_cuthill_mckee)."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "rcm_order"):
+        return None
+    n = A_csr.shape[0]
+    indptr = np.ascontiguousarray(A_csr.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(A_csr.indices, dtype=np.int64)
+    perm = np.zeros(n, dtype=np.int64)
+    lib.rcm_order(n, _i64p(indptr), _i64p(indices), _i64p(perm))
+    return perm
+
+
+def csr_permute_sym(A_csr, perm):
+    """B = A[perm][:, perm] with sorted indices, as a scipy CSR (float32
+    values); None when the library or the symbol is missing."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "csr_permute_sym"):
+        return None
+    import scipy.sparse as sp
+    n = A_csr.shape[0]
+    indptr = np.ascontiguousarray(A_csr.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(A_csr.indices, dtype=np.int64)
+    data = np.ascontiguousarray(A_csr.data, dtype=np.float32)
+    perm = np.ascontiguousarray(perm, dtype=np.int64)
+    out_indptr = np.zeros(n + 1, dtype=np.int64)
+    out_indices = np.zeros(indices.size, dtype=np.int64)
+    out_data = np.zeros(data.size, dtype=np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.csr_permute_sym(n, _i64p(indptr), _i64p(indices),
+                        data.ctypes.data_as(f32p), _i64p(perm),
+                        _i64p(out_indptr), _i64p(out_indices),
+                        out_data.ctypes.data_as(f32p))
+    idt = np.int32 if (indices.size < 2 ** 31 and n < 2 ** 31) else np.int64
+    B = sp.csr_matrix((out_data, out_indices.astype(idt),
+                       out_indptr.astype(idt)), shape=A_csr.shape)
+    B.has_sorted_indices = True
+    return B

@@ -1,0 +1,329 @@
+"""Kernel K4, the fused grid stencil — the counterpart of the kernel half
+of gnnla_tpu/ops/pallas_stencil.py.
+
+  * `stencil_cuda` — the raw launcher of `csrc/stencil.cu` (CUDA tensors
+    only; it raises on anything else).
+  * `StencilCall` — the counterpart of the call `_build_stencil_call`
+    returns: fixed taps, shifts, grid, n_steps and mode; calling it
+    launches K4 on CUDA tensors and runs the plain version (`ops/stencil.py::
+    stencil_apply_plain`) only for CPU tensors. `launches` counts kernel
+    launches (one per step; 2 n_steps + 1 in normalize mode, whose norm
+    takes a finalize launch per step and a last scaling pass).
+  * `StencilSpMV`, `StencilJacobi`, `StencilPower`, `StencilResidual` and
+    the `make_stencil_*` constructors — the four users of the kernel
+    (`PallasStencil*` in the JAX package), with the same taps.
+
+The gradient of `PallasStencilSpMV` (its custom VJP) comes with the
+training slice; until then every K4 call refuses inputs that require grad,
+on the CPU as on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gnnla_tpu_torch import _build
+from gnnla_tpu_torch.ops.stencil import (MAX_TAPS, MODES, check_mode,
+                                         stencil_apply_plain, stencil_taps)
+
+_THREADS = 256  # the step kernel's block size (kThreads in csrc/stencil.cu)
+_MODE_ID = {"plain": 0, "affine": 1, "normalize": 2}
+
+
+def stencil_launches(mode: str, n_steps: int) -> int:
+    """Kernel launches of one fused call."""
+    return 2 * n_steps + 1 if mode == "normalize" else n_steps
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"stencil: {msg}")
+
+
+def stencil_cuda(taps: torch.Tensor, shifts_dev: torch.Tensor,
+                 x2d: torch.Tensor, n_steps: int, mode: str,
+                 c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K4: n_steps of the stencil in `mode` on x2d [H, W] f32 with
+    taps [K, H, W] (f32 or bf16) and shifts_dev [2K] int32 (the dy's, then
+    the dx's), all contiguous on one CUDA device. Returns a new [H, W].
+    The kernel takes each shift modulo H and W, as the plain version's
+    roll does, so no shift can make it read outside x."""
+    check_mode(mode, c)
+    _require(x2d.device.type == "cuda", f"x lies on {x2d.device}, not CUDA")
+    ins = (taps, shifts_dev) + (() if c is None else (c,))
+    _require(all(t.device == x2d.device for t in ins),
+             "taps, shifts, c and x must share one device")
+    _require(taps.dtype in (torch.float32, torch.bfloat16),
+             "taps must be float32 or bfloat16")
+    _require(x2d.dtype == torch.float32
+             and (c is None or c.dtype == torch.float32),
+             "x and c must be float32")
+    _require(shifts_dev.dtype == torch.int32, "shifts must be int32")
+    _require(taps.ndim == 3 and x2d.ndim == 2, "taps [K, H, W] and x [H, W] "
+             "expected")
+    k, h, w = taps.shape
+    _require(1 <= k <= MAX_TAPS, f"K={k} taps; 1 to {MAX_TAPS} supported")
+    _require(x2d.shape == (h, w) and shifts_dev.shape == (2 * k,)
+             and (c is None or c.shape == (h, w)),
+             f"shapes taps {tuple(taps.shape)}, shifts "
+             f"{tuple(shifts_dev.shape)}, x {tuple(x2d.shape)}"
+             + ("" if c is None else f", c {tuple(c.shape)}") + " disagree")
+    _require(h * w < 2 ** 31, "grid must have fewer than 2^31 points")
+    _require(n_steps >= 1, "n_steps must be >= 1")
+    _require(all(t.is_contiguous() for t in ins + (x2d,)),
+             "inputs must be contiguous")
+    bufs = stencil_buffers(x2d, n_steps, mode)
+    args = stencil_args(taps, shifts_dev, x2d, n_steps, mode, c, *bufs)
+    lib = _build.load()
+    with torch.cuda.device(x2d.device):
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        _build.check(lib.stencil_f32(*args, stream), "stencil_f32")
+    return bufs[0]
+
+
+def stencil_buffers(x2d: torch.Tensor, n_steps: int, mode: str):
+    """(out, tmp, scratch) for one call: the output, the ping-pong buffer
+    (n_steps > 1) and the normalize mode's per-block partials + scale."""
+    h, w = x2d.shape
+    out = torch.empty_like(x2d)
+    tmp = torch.empty_like(x2d) if n_steps > 1 else None
+    scratch = None
+    if mode == "normalize":
+        scratch = x2d.new_empty(-(-h * w // _THREADS) + 1)
+    return out, tmp, scratch
+
+
+def stencil_args(taps, shifts_dev, x2d, n_steps, mode, c, out, tmp,
+                 scratch) -> tuple:
+    """The arguments of the C entry point `stencil_f32`, all but the
+    stream, for checked operands and buffers from `stencil_buffers`."""
+    k, h, w = taps.shape
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    return (taps.data_ptr(), int(taps.dtype == torch.bfloat16),
+            shifts_dev.data_ptr(), k, h, w, x2d.data_ptr(), ptr(c),
+            out.data_ptr(), ptr(tmp), ptr(scratch),
+            0 if scratch is None else scratch.numel(), n_steps,
+            _MODE_ID[mode])
+
+
+class StencilCall:
+    """n_steps of K4 in one mode with fixed taps [K, H, W] and shifts (the
+    counterpart of the call object `_build_stencil_call` builds, which
+    binds the grid too).
+
+    call(x2d, c=None) -> y2d: on CUDA tensors K4, on CPU tensors the plain
+    version. x2d (and c) must lie on the taps' H x W grid. `launches`
+    counts kernel launches; it never moves on the CPU path.
+
+    Not differentiable yet on either path: an input that requires grad
+    raises NotImplementedError (the VJP comes with the training slice)."""
+
+    def __init__(self, shifts: Sequence[Tuple[int, int]],
+                 taps: torch.Tensor, n_steps: int, mode: str):
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        if mode not in MODES:
+            raise ValueError(f"stencil mode must be one of {MODES}, "
+                             f"got {mode!r}")
+        self.shifts = [(int(dy), int(dx)) for dy, dx in shifts]
+        _require(taps.ndim == 3 and taps.shape[0] == len(self.shifts),
+                 f"taps {tuple(taps.shape)} for {len(self.shifts)} shifts; "
+                 "[K, H, W] expected")
+        _, h, w = taps.shape
+        bad = [s for s in self.shifts
+               if not (0 <= s[0] < h and 0 <= s[1] < w)]
+        _require(not bad, f"shifts {bad[:4]} lie outside the {h}x{w} grid "
+                 "(0 <= dy < H, 0 <= dx < W)")
+        self.taps = taps
+        self.grid_shape = (int(h), int(w))
+        self.n_steps = int(n_steps)
+        self.mode = mode
+        self.shifts_dev = torch.tensor(
+            [dy for dy, _ in self.shifts] + [dx for _, dx in self.shifts],
+            dtype=torch.int32, device=taps.device)
+        self.launches = 0
+
+    def plain(self, x2d: torch.Tensor,
+              c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return stencil_apply_plain(self.taps, self.shifts, x2d, self.n_steps,
+                                   self.mode, c)
+
+    def __call__(self, x2d: torch.Tensor,
+                 c: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if any(t is not None and t.requires_grad for t in (self.taps, x2d, c)):
+            raise NotImplementedError(
+                "the gradient of the stencil kernel (the JAX package's "
+                "custom VJP) comes with the training slice")
+        _require(tuple(x2d.shape) == self.grid_shape,
+                 f"x {tuple(x2d.shape)} is not on the call's "
+                 f"{self.grid_shape[0]}x{self.grid_shape[1]} grid")
+        if x2d.device.type == "cpu":
+            return self.plain(x2d, c)
+        y = stencil_cuda(self.taps, self.shifts_dev, x2d, self.n_steps,
+                         self.mode, c)
+        self.launches += stencil_launches(self.mode, self.n_steps)
+        return y
+
+
+def taps_tensor(planes: np.ndarray, grid_shape, tap_dtype,
+                device) -> torch.Tensor:
+    """Host float64 planes [K, H*W] as [K, H, W] taps of tap_dtype on
+    device, rounded once from float64 as the JAX package does."""
+    h, w = grid_shape
+    return torch.from_numpy(planes).to(tap_dtype).reshape(-1, h, w).to(device)
+
+
+class StencilSpMV:
+    """Fused y = A^{n_steps} x for grid-stencil operators
+    (`PallasStencilSpMV`).
+
+    apply(x2d) -> y2d    [H, W] f32 in and out
+    matvec_n(x)          on flat [n] vectors
+
+    Not differentiable yet: an input that requires grad raises
+    NotImplementedError (the VJP comes with the training slice)."""
+
+    def __init__(self, op, grid_shape: Tuple[int, int], n_steps: int = 1,
+                 tap_dtype=None):
+        if n_steps < 1:
+            raise ValueError("n_steps must be >= 1")
+        tap_dtype = tap_dtype or op.vals.dtype
+        shifts, planes = stencil_taps(op, grid_shape)
+        self.grid_shape = (int(grid_shape[0]), int(grid_shape[1]))
+        self.shifts = shifts
+        self.n = op.shape[0]
+        self.nnz = op.nnz
+        self.n_steps = n_steps
+        self.taps = taps_tensor(planes, grid_shape, tap_dtype, op.device)
+        self._call = StencilCall(shifts, self.taps, n_steps, "plain")
+
+    def apply(self, x2d: torch.Tensor) -> torch.Tensor:
+        return self._call(x2d.float())
+
+    def matvec_n(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A^{n_steps} x on flat [n] vectors."""
+        return self.apply(x.reshape(self.grid_shape)).reshape(-1)
+
+
+class StencilJacobi:
+    """Fused weighted-Jacobi sweeps (`PallasStencilJacobi`).
+
+    n_iters of x <- x + omega D^-1 (b - A x), as the affine iteration
+    x <- M x + c with M = I - omega D^-1 A (A's shift classes plus the
+    identity) and c = omega b / d. M is built in float64 on the host,
+    exactly as in the JAX package, and cast once at the end.
+
+    run(b2d, x2d) -> x2d' on [H, W] grids, smooth(b, x) on flat [n]
+    vectors."""
+
+    def __init__(self, op, grid_shape: Tuple[int, int], omega: float,
+                 n_iters: int, diag=None, tap_dtype=None):
+        h, w = grid_shape
+        tap_dtype = tap_dtype or op.vals.dtype
+        shifts, planes = stencil_taps(op, grid_shape)
+        src = op.diagonal() if diag is None else torch.as_tensor(diag)
+        d = src.detach().cpu().numpy().astype(np.float64).reshape(-1)
+        planes = -omega * planes / d[None, :]
+        if (0, 0) not in shifts:
+            shifts = [(0, 0)] + shifts
+            planes = np.concatenate([np.zeros((1, h * w)), planes], axis=0)
+        planes[shifts.index((0, 0))] += 1.0
+
+        self.grid_shape = (int(h), int(w))
+        self.n = op.shape[0]
+        self.nnz = op.nnz
+        self.n_iters = n_iters
+        self.omega = omega
+        self.taps = taps_tensor(planes, grid_shape, tap_dtype, op.device)
+        self._d2 = torch.from_numpy(d.reshape(h, w)).float().to(op.device)
+        self._call = StencilCall(shifts, self.taps, n_iters, "affine")
+
+    def run(self, b2d: torch.Tensor, x2d: torch.Tensor) -> torch.Tensor:
+        c = (self.omega * b2d / self._d2).float()
+        return self._call(x2d.float(), c)
+
+    def smooth(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """n_iters Jacobi sweeps on flat [n] vectors."""
+        return self.run(b.reshape(self.grid_shape),
+                        x.reshape(self.grid_shape)).reshape(-1)
+
+
+class StencilPower:
+    """Fused normalized power iterations (`PallasStencilPower`): n_iters of
+    b <- A b / ||A b||_2; the Rayleigh quotient is taken on the returned
+    iterate with the operator's own matvec."""
+
+    def __init__(self, op, grid_shape: Tuple[int, int], n_iters: int,
+                 tap_dtype=None):
+        tap_dtype = tap_dtype or op.vals.dtype
+        shifts, planes = stencil_taps(op, grid_shape)
+        self._op = op
+        self.grid_shape = (int(grid_shape[0]), int(grid_shape[1]))
+        self.n = op.shape[0]
+        self.nnz = op.nnz
+        self.n_iters = n_iters
+        self.taps = taps_tensor(planes, grid_shape, tap_dtype, op.device)
+        self._call = StencilCall(shifts, self.taps, n_iters, "normalize")
+
+    def apply(self, b2d: torch.Tensor) -> torch.Tensor:
+        return self._call(b2d.float())
+
+    def run(self, b0: torch.Tensor):
+        """(lambda_max, b) after n_iters normalized iterations."""
+        b = self.apply(b0.reshape(self.grid_shape)).reshape(-1)
+        lam = torch.dot(b, self._op.matvec(b)) / torch.dot(b, b)
+        return lam, b
+
+
+class StencilResidual:
+    """Fused r = b - A x in one pass (`PallasStencilResidual`): the affine
+    mode with taps = -A and c = b."""
+
+    def __init__(self, op, grid_shape: Tuple[int, int], tap_dtype=None):
+        tap_dtype = tap_dtype or op.vals.dtype
+        shifts, planes = stencil_taps(op, grid_shape)
+        self.grid_shape = (int(grid_shape[0]), int(grid_shape[1]))
+        self.n = op.shape[0]
+        self.nnz = op.nnz
+        self.taps = taps_tensor(-planes, grid_shape, tap_dtype, op.device)
+        self._call = StencilCall(shifts, self.taps, 1, "affine")
+
+    def run(self, b2d: torch.Tensor, x2d: torch.Tensor) -> torch.Tensor:
+        return self._call(x2d.float(), b2d.float())
+
+    def residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """r = b - A x on flat [n] vectors."""
+        return self.run(b.reshape(self.grid_shape),
+                        x.reshape(self.grid_shape)).reshape(-1)
+
+
+def make_stencil_spmv(op, grid_shape: Tuple[int, int], n_steps: int = 1,
+                      tap_dtype=None) -> StencilSpMV:
+    """The fused stencil SpMV (see StencilSpMV)."""
+    return StencilSpMV(op, grid_shape, n_steps, tap_dtype)
+
+
+def make_stencil_jacobi(op, grid_shape: Tuple[int, int], omega: float = 0.7,
+                        n_iters: int = 3, diag=None,
+                        tap_dtype=None) -> StencilJacobi:
+    """Fused weighted-Jacobi smoother; `diag` overrides the operator
+    diagonal (trained-Jacobi integration)."""
+    return StencilJacobi(op, grid_shape, omega, n_iters, diag, tap_dtype)
+
+
+def make_stencil_power(op, grid_shape: Tuple[int, int], n_iters: int = 10,
+                       tap_dtype=None) -> StencilPower:
+    """Fused normalized power iteration."""
+    return StencilPower(op, grid_shape, n_iters, tap_dtype)
+
+
+def make_stencil_residual(op, grid_shape: Tuple[int, int],
+                          tap_dtype=None) -> StencilResidual:
+    """Fused r = b - A x stencil call."""
+    return StencilResidual(op, grid_shape, tap_dtype)

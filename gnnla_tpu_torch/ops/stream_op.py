@@ -6,22 +6,26 @@ AMG prolongation P) satisfy the matvec/rmatvec protocol the solvers
 consume, with both directions on kernel K2 (`ops/stream_spmv.py`): matvec
 on a CSR of A, rmatvec on a CSR of A^T.
 
-Only `reorder=False` is ported: the caller's order is the kernel's order.
-The RCM path (`rcm_csr`, `setup_with_stream`) comes with a later slice.
-The JAX package's square embedding of a rectangular P was a device of the
-TPU pack; K2 takes the rectangular CSR directly. The embedding still
-decides which patterns are refused, so both packages take the same layout.
+`stream_operator(op, reorder=True)` packs A in reverse Cuthill-McKee order
+(`stream_spmv.rcm_csr`), which bounds the column windows the JAX packer
+tests, and gathers caller-order vectors into kernel order and back
+(`perm`/`iperm`), as the JAX package does; `reorder=False` keeps the
+caller's order. The JAX package's square embedding of a rectangular P
+was a device of the TPU pack; K2 takes the rectangular CSR directly. The
+embedding still decides which patterns are refused, so both packages take
+the same layout.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from gnnla_tpu_torch.ops.sparse import SparseOperator
-from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV, check_stream_pattern
+from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, check_stream_pattern,
+                                             rcm_csr)
 
 
 def _vector(v: torch.Tensor, n: int, what: str) -> None:
@@ -32,9 +36,17 @@ def _vector(v: torch.Tensor, n: int, what: str) -> None:
                          f"operator expects {n}")
 
 
-def _csr_pair(op: SparseOperator, shape: Tuple[int, int], width: int):
-    """Host CSRs of A and A^T for `shape`, refused as the JAX packer would
-    refuse the width x width square it packs."""
+def _csr_pair(A, device: torch.device, width: int):
+    """Kernel-K2 wrappers of the host CSR A and of A^T, refused as the JAX
+    packer would refuse the width x width square it packs."""
+    At = A.T.tocsr()
+    At.sort_indices()
+    check_stream_pattern(A.indptr, A.indices, width)
+    check_stream_pattern(At.indptr, At.indices, width)
+    return CsrSpMV(A, device=device), CsrSpMV(At, device=device)
+
+
+def _host_csr(op: SparseOperator, shape: Tuple[int, int]):
     import scipy.sparse as sp
 
     rows, cols, vals = op.host_coo()
@@ -42,20 +54,24 @@ def _csr_pair(op: SparseOperator, shape: Tuple[int, int], width: int):
         raise ValueError(f"operator has columns beyond n_cols={shape[1]}")
     A = sp.csr_matrix((vals, (rows, cols)), shape=shape)
     A.sort_indices()
-    At = A.T.tocsr()
-    At.sort_indices()
-    check_stream_pattern(A.indptr, A.indices, width)
-    check_stream_pattern(At.indptr, At.indices, width)
-    return CsrSpMV(A, device=op.device), CsrSpMV(At, device=op.device)
+    return A
 
 
 class StreamOperator:
-    """Square sparse operator on kernel K2 (matvec, rmatvec, diagonal)."""
+    """Square sparse operator on kernel K2 (matvec, rmatvec, diagonal).
 
-    def __init__(self, fwd: CsrSpMV, bwd: CsrSpMV, diag: torch.Tensor):
+    fwd / bwd    : K2 on the kernel-order CSR of A and of A^T
+    perm / iperm : caller order <-> kernel (RCM) order gathers, or None
+    diag         : [n] diagonal in caller order"""
+
+    def __init__(self, fwd: CsrSpMV, bwd: CsrSpMV, diag: torch.Tensor,
+                 perm: Optional[torch.Tensor] = None,
+                 iperm: Optional[torch.Tensor] = None):
         self.fwd = fwd
         self.bwd = bwd
         self.diag = diag
+        self.perm = perm
+        self.iperm = iperm
         self.shape: Tuple[int, int] = fwd.shape
         self.nnz = fwd.nnz
 
@@ -67,16 +83,22 @@ class StreamOperator:
     def n_cols(self) -> int:
         return self.shape[1]
 
+    def _apply(self, kernel: CsrSpMV, v: torch.Tensor) -> torch.Tensor:
+        vk = v if self.perm is None else v[self.perm]
+        yk = kernel(vk)
+        return yk if self.iperm is None else yk[self.iperm]
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         _vector(x, self.n_cols, "matvec")
-        return self.fwd(x)
+        return self._apply(self.fwd, x)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self.matvec(x)
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
+        """A^T y (K2 on the transposed CSR; B^T = P A^T P^T)."""
         _vector(y, self.n_rows, "rmatvec")
-        return self.bwd(y)
+        return self._apply(self.bwd, y)
 
     def diagonal(self) -> torch.Tensor:
         return self.diag
@@ -126,16 +148,29 @@ def rect_stream_operator(op: SparseOperator,
     if op.n_cols not in (n, n_cols):
         raise ValueError(f"expected an [{n} x {n_cols}] operator or its "
                          f"[{n} x {n}] square embedding, got {op.shape}")
-    fwd, bwd = _csr_pair(op, (n, int(n_cols)), width=n)
+    fwd, bwd = _csr_pair(_host_csr(op, (n, int(n_cols))), op.device,
+                         width=n)
     return RectStreamOperator(fwd, bwd)
 
 
-def stream_operator(op: SparseOperator) -> StreamOperator:
-    """Build a StreamOperator from a square SparseOperator (host setup), in
-    the caller's order — the JAX package's `reorder=False`."""
+def stream_operator(op: SparseOperator, *,
+                    reorder: bool = True) -> StreamOperator:
+    """Build a StreamOperator from a square SparseOperator (host setup).
+
+    `reorder=True` packs the RCM-permuted operator (results stay in caller
+    order through the perm/iperm gathers); `reorder=False` packs the
+    caller's order, which must already have bounded column windows.
+    ValueError where the JAX packer refuses the packed pattern."""
     if op.shape[0] != op.shape[1]:
         raise ValueError("stream SpMV requires a square operator")
-    fwd, bwd = _csr_pair(op, op.shape, width=op.n_rows)
+    A = _host_csr(op, op.shape)
+    perm = iperm = None
+    if reorder:
+        A, p = rcm_csr(A)
+        perm = torch.from_numpy(p.astype(np.int64)).to(op.device)
+        iperm = torch.from_numpy(np.argsort(p).astype(np.int64)).to(
+            op.device)
+    fwd, bwd = _csr_pair(A, op.device, width=op.n_rows)
     diag = torch.from_numpy(op.host_diagonal().astype(np.float32)).to(
         op.device)
-    return StreamOperator(fwd, bwd, diag)
+    return StreamOperator(fwd, bwd, diag, perm, iperm)

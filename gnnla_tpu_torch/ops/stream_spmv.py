@@ -17,6 +17,9 @@ builds a transposed pack.
                              (`build_stream`), so the port refuses exactly
                              the patterns the JAX package refuses and both
                              packages take the same layout.
+  * `rcm_csr`              — the reverse Cuthill-McKee reordering the
+                             square stream path packs in, with the JAX
+                             package's choice of native or scipy order.
 """
 
 from __future__ import annotations
@@ -62,6 +65,28 @@ def check_stream_pattern(indptr, indices, n_cols: int) -> int:
             f"({lx_tiles}); matrix too small or ordering too diffuse for "
             "the stream kernel — use the COO path")
     return w_sc
+
+
+def rcm_csr(A_csr):
+    """(reordered CSR, permutation) via reverse Cuthill-McKee.
+
+    The native order (`native_ext.rcm_order` + `csr_permute_sym`) when the
+    library is present and the values are float32, scipy's otherwise — the
+    JAX package's condition, so both packages pack the same order and
+    refuse the same patterns."""
+    from gnnla_tpu_torch import native_ext
+
+    if A_csr.data.dtype == np.float32:  # native permute stores f32 values
+        perm = native_ext.rcm_order(A_csr)
+        if perm is not None:
+            B = native_ext.csr_permute_sym(A_csr, perm)
+            if B is not None:
+                return B, perm
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    perm = np.asarray(reverse_cuthill_mckee(A_csr, symmetric_mode=False))
+    B = A_csr[perm][:, perm].tocsr()
+    B.sort_indices()
+    return B, perm
 
 
 def csr_spmv_plain(rows: torch.Tensor, cols: torch.Tensor,

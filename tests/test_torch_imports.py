@@ -33,8 +33,11 @@ def _imported_modules(path):
 def test_port_files_found():
     files = [os.path.relpath(p, ROOT) for p in _port_files()]
     for must in ("chip_smoke.py", "gnnla_tpu_torch/models/vcycle.py",
+                 "gnnla_tpu_torch/models/geometric.py",
                  "gnnla_tpu_torch/ops/dia_spmv.py",
-                 "gnnla_tpu_torch/ops/stream_spmv.py"):
+                 "gnnla_tpu_torch/ops/stream_spmv.py",
+                 "gnnla_tpu_torch/ops/stencil.py",
+                 "gnnla_tpu_torch/ops/stencil_kernel.py"):
         assert must in files
 
 
@@ -47,8 +50,9 @@ def test_no_jax_or_gnnla_tpu_imports(path):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, gnnla_tpu_torch.models.vcycle, "
-            "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op; "
+    code = ("import sys, gnnla_tpu_torch.models, "
+            "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
+            "gnnla_tpu_torch.ops.stencil_kernel, gnnla_tpu_torch.native_ext; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -77,6 +81,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The raw launchers never run the plain version: only the operator
     wrappers pick it, and only for CPU tensors."""
     from gnnla_tpu_torch.ops.dia_spmv import dia_spmv_cuda
+    from gnnla_tpu_torch.ops.stencil_kernel import stencil_cuda
     from gnnla_tpu_torch.ops.stream_spmv import csr_spmv_cuda
 
     x = torch.zeros(4)
@@ -85,13 +90,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="not CUDA"):
         csr_spmv_cuda(torch.zeros(5, dtype=torch.int32),
                       torch.zeros(0, dtype=torch.int32), torch.zeros(0), x, 4)
+    with pytest.raises(ValueError, match="not CUDA"):
+        stencil_cuda(torch.zeros(1, 2, 2), torch.zeros(2, dtype=torch.int32),
+                     torch.zeros(2, 2), 1, "plain")
 
 
 def test_build_is_lazy():
     """Importing every port module (and chip_smoke) builds and loads no
     kernel, so the CPU needs no nvcc."""
-    code = ("import chip_smoke, gnnla_tpu_torch.models.vcycle, "
-            "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op; "
+    code = ("import chip_smoke, gnnla_tpu_torch.models, "
+            "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
+            "gnnla_tpu_torch.ops.stencil_kernel; "
             "from gnnla_tpu_torch import _build; "
             "raise SystemExit(0 if _build._lib is None else 1)")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -250,7 +250,7 @@ def test_square_stream_operator_matches(case):
 
     j, t = _operator(case)
     s_j = j_stream(j, reorder=False, backend="emulate")
-    s_t = stream_operator(t)
+    s_t = stream_operator(t, reorder=False)
     x = np.random.default_rng(9).standard_normal(j.n_rows).astype(np.float32)
     assert_close(s_t.matvec(torch.from_numpy(x)), s_j.matvec(jnp.asarray(x)))
     assert_close(s_t.rmatvec(torch.from_numpy(x)),
@@ -284,7 +284,7 @@ def test_empty_operator_refused_by_both(which):
         with pytest.raises(ValueError, match="empty matrix"):
             j_stream_op.stream_operator(j, reorder=False, backend="emulate")
         with pytest.raises(ValueError, match="empty matrix"):
-            stream_operator(t)
+            stream_operator(t, reorder=False)
     else:
         with pytest.raises(ValueError, match="empty matrix"):
             j_stream_op.rect_stream_operator(j, 1000, backend="emulate")
