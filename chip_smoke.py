@@ -60,6 +60,37 @@ The stream leg of `AutoTwoGrid` (kernel K2 on a square RCM-ordered A):
                     falls every cycle, exactly 7 K2 launches per cycle, x
                     matches the plain cycle (1e-4 of max|x|); ms/cycle,
                     the K2 row's times and a profile of one cycle.
+                    K2's backward: a scalar of matvec and of rmatvec
+                    differentiated on the card (one K2 launch forward,
+                    one on the other CSR backward) against the plain COO
+                    operator's x-gradient, and the values gradient against
+                    the plain CSR version's; a `csr_spmv[A_rcm_T,
+                    backward]` row.
+Training the learned Jacobi smoother (kernel K3, the multi-RHS SpMM):
+ 13. spmm         — K3 on the stream phase's RCM-ordered CSR and on its
+                    transpose at M = 20 (the trainer's probe count)
+                    against the plain version (rtol 1e-5); flushed, warm
+                    and profiler device times; the bytes bound; on each,
+                    one `torch.sparse.mm` (cuSPARSE) checked against it.
+ 14. train_stream — that operator negated: the Gelfand loss on K3 against
+                    the plain COO path (loss rtol 1e-4, gradient in the
+                    diagonal rtol 1e-3 + 1e-5 max|g|), exactly 3 K3
+                    launches on A and 2 on A^T per value-and-grad, four
+                    descent steps lower the loss; then the learned-D step
+                    (features -> MLP with the committed weights -> loss ->
+                    backward -> Adam): MLP gradients against the plain
+                    path (rtol 1e-3), ms per step, idle share.
+ 15. jacobi_weights — artifacts/jacobi/params.npz on the card: the 150
+                    regenerated test matrices give the artifact's diag_A
+                    (rtol 1e-6); the learned (2/3)/D equals the CPU's
+                    (rtol 1e-5) and the artifact's diag_learn_Dinv (max
+                    relative error <= 3e-2, mean < 1e-2).
+ 16. train        — `train` at the reference's widths on 300 matrices,
+                    2 epochs, in the "dia" and "stencil" layouts: finite
+                    losses and gradients, the first step's loss equal to
+                    the CPU's and across layouts (rtol 1e-4), ms per step
+                    and idle share.
+TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, and the script exits non-zero.
 """
@@ -68,8 +99,10 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -78,6 +111,9 @@ import torch
 
 from gnnla_tpu_torch import _build, native_ext
 from gnnla_tpu_torch.models.geometric import GeometricVCycle
+from gnnla_tpu_torch.models.trainable_jacobi import (TrainableJacobiMLP,
+                                                     jacobi_diag_features,
+                                                     predict_diag)
 from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid, setup_twogrid,
                                            setup_with_dia,
                                            setup_with_stream_p, solve)
@@ -89,8 +125,23 @@ from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
                                                 stencil_args,
                                                 stencil_buffers,
                                                 stencil_launches)
-from gnnla_tpu_torch.ops.stream_op import RectStreamOperator, StreamOperator
+from gnnla_tpu_torch.ops.stream_op import (RectStreamOperator,
+                                           StreamOperator, csr_pair)
+from gnnla_tpu_torch.ops.stream_spmv import (csr_spmv_plain, entry_rows,
+                                             rcm_csr)
 from gnnla_tpu_torch.problems import laplacian_2d
+from gnnla_tpu_torch.problems.small_band import small_band_matrix_host
+from gnnla_tpu_torch.training.checkpoints import load_params_npz
+from gnnla_tpu_torch.training.datasets import small_band_dataset
+from gnnla_tpu_torch.training.spectral_loss import (
+    damping_factor_gelfand, damping_factor_gelfand_spmm, uniform_probes)
+from gnnla_tpu_torch.training.train_jacobi import (PlateauScale,
+                                                   TrainJacobiConfig,
+                                                   _draw_probes,
+                                                   feature_stack,
+                                                   make_loss_fn,
+                                                   matrix_stack, train,
+                                                   train_step)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
@@ -104,6 +155,10 @@ RTOL = 1e-5
 NORM_ULPS_PER_STEP = 64
 K2_ROW = ("csr_spmv", "gnnla_tpu_torch/csrc/csr_spmv.cu",
           "gnnla_tpu/ops/pallas_stream.py:479")
+OMEGA = 2.0 / 3.0
+M_PROBES = 20  # the trainer's m_probes: K3's width on the training path
+ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "artifacts", "jacobi")
 
 
 def emit(obj) -> None:
@@ -158,10 +213,13 @@ def require(cond: bool, what) -> None:
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, what: str,
-            rtol: float = RTOL) -> dict:
+            rtol: float = RTOL, atol_scale: float = None) -> dict:
+    """Elementwise |got - want| <= rtol |want| + atol_scale max|want|
+    (atol_scale defaults to rtol)."""
     err = (got - want).abs()
     scale = float(want.abs().max())
-    ok = bool((err <= rtol * want.abs() + rtol * scale).all())
+    atol = (rtol if atol_scale is None else atol_scale) * scale
+    ok = bool((err <= rtol * want.abs() + atol).all())
     out = dict(what=what, max_abs_err=float(err.max()),
                max_rel_err=float(err.max()) / scale if scale else 0.0)
     if not ok or not torch.isfinite(got).all():
@@ -499,30 +557,334 @@ def stream_path(A, flush, smi) -> list:
     ms_plain = cuda_ms(lambda: solve(setup_p, b, x0, n_cycles=1), iters=3,
                        warmup=1)
     prof = profile_cycles(lambda c: [auto.run(b, x0) for _ in range(c)])
-    raw, bytes_moved, flops = csr_raw(_build.load(), S.fwd, xk)
-    lib_mat = csr_tensor(S.fwd)
-    lib_mat @ xk
-    bound_ms, bound_by = bound(bytes_moved, flops)
-    row = dict(
-        name="csr_spmv[A_rcm]", route="cuda", source=K2_ROW[1],
-        replaces=K2_ROW[2], launches=launches["A_rcm"],
-        max_abs_err=errs["A_rcm"]["max_abs_err"],
-        ms=cuda_ms_cold(raw, 20, flush),
-        plain_ms=cuda_ms_cold(lambda: S.fwd.plain(xk), 5, flush),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=cuda_ms_cold(lambda: lib_mat @ xk, 20, flush))
+
+    # K2's backward: a scalar of matvec and of rmatvec differentiated on
+    # the card, against the plain COO operator's x-gradient and the plain
+    # CSR version's values gradient (ybar[row] * x[col], autograd's)
+    w = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        n).astype(np.float32)).to(dev)
+    S.fwd.launches = S.bwd.launches = 0
+    grad_errs, grad_launches = {}, {}
+    for name in ("matvec", "rmatvec"):
+        x1 = xr.clone().requires_grad_(True)
+        x2 = xr.clone().requires_grad_(True)
+        torch.sum(w * getattr(S, name)(x1)).backward()
+        torch.sum(w * getattr(A_p, name)(x2)).backward()
+        grad_errs[f"{name}_x_grad"] = compare(x1.grad, x2.grad,
+                                             f"{name} x gradient")
+        grad_launches[name] = dict(A_rcm=S.fwd.launches,
+                                   A_rcm_T=S.bwd.launches)
+        S.fwd.launches = S.bwd.launches = 0
+    # each direction: one forward launch, one backward launch on the
+    # other CSR
+    require(grad_launches == {"matvec": {"A_rcm": 1, "A_rcm_T": 1},
+                              "rmatvec": {"A_rcm": 1, "A_rcm_T": 1}},
+            grad_launches)
+    wk = w[S.perm].contiguous()
+    S.fwd.vals.requires_grad_(True)
+    torch.sum(wk * S.fwd(xk)).backward()
+    vals_p = S.fwd.vals.detach().clone().requires_grad_(True)
+    torch.sum(wk * csr_spmv_plain(entry_rows(S.fwd.row_ptr, S.nnz),
+                                  S.fwd.cols, vals_p, xk, n)).backward()
+    grad_errs["values_grad"] = compare(S.fwd.vals.grad, vals_p.grad,
+                                       "values gradient")
+    S.fwd.vals.requires_grad_(False)
+    S.fwd.vals.grad = None
+
+    lib = _build.load()
+    rows_out, raws = [], {}
+    for key, csr, vin, cnt in (
+            ("A_rcm", S.fwd, xk, launches["A_rcm"]),
+            ("A_rcm_T, backward", S.bwd, wk,
+             grad_launches["matvec"]["A_rcm_T"])):
+        raw, bytes_moved, flops = csr_raw(lib, csr, vin)
+        raws[key] = raw
+        lib_mat = csr_tensor(csr)
+        lib_mat @ vin
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        err = (errs[key] if key in errs else grad_errs["matvec_x_grad"])
+        rows_out.append(dict(
+            name=f"csr_spmv[{key}]", route="cuda", source=K2_ROW[1],
+            replaces=K2_ROW[2], launches=cnt,
+            max_abs_err=err["max_abs_err"],
+            ms=cuda_ms_cold(raw, 20, flush),
+            plain_ms=cuda_ms_cold(lambda: csr.plain(vin), 5, flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms_cold(lambda: lib_mat @ vin, 20, flush)))
     emit(dict(phase="stream", setup_twogrid_s=t_setup, auto_build_s=t_auto,
               layout=auto.layout, why=auto.why, n=n, nnz=S.nnz,
               results=list(errs.values()), cycles=N_CYCLES,
               residual_norms=res, launches=launches,
               rel_err_vs_plain_cycle=rel, ms_per_cycle=ms_cycle,
               ms_per_cycle_plain_path=ms_plain,
-              k2_raw_l2_warm_ms=cuda_ms(raw, iters=50),
+              k2_raw_l2_warm_ms=cuda_ms(raws["A_rcm"], iters=50),
               device_busy_ms_per_cycle=prof["device_busy_ms_per_cycle"],
               idle_share=1.0 - prof["device_busy_ms_per_cycle"] / ms_cycle,
               top_kernels_per_cycle=prof["top_kernels_per_cycle"],
+              k2_backward=dict(results=list(grad_errs.values()),
+                               launches=grad_launches),
               nvidia_smi=smi))
-    return [row]
+    return rows_out, A_p
+
+
+def jacobi_weights(dev) -> None:
+    """Phase 15: the committed learned Jacobi model carried across. The
+    150 test matrices regenerated from the artifact's (h, band location)
+    give its diag_A; the card's learned (2/3)/D equals the port's CPU
+    result and reproduces the artifact's diag_learn_Dinv (computed on a
+    TPU, whose default f32 matmul rounds through bf16; JAX on a CPU
+    differs from it by up to 1.5e-2)."""
+    t0 = time.perf_counter()
+    z = np.load(os.path.join(ARTIFACT, "test_eigenvalues.npz"))
+    model = load_params_npz(os.path.join(ARTIFACT, "params.npz"),
+                            TrainableJacobiMLP(device=dev))
+    model_cpu = TrainableJacobiMLP(device="cpu")
+    model_cpu.load_state_dict(model.state_dict())
+    diag_err, dinv, dinv_cpu = 0.0, [], []
+    with torch.no_grad():
+        for h, loc, want_d in zip(z["hs"], z["band_locs"], z["diag_A"]):
+            K, _, _ = small_band_matrix_host(38, h, loc)
+            op = SparseOperator.from_scipy(K, device="cpu")
+            d = op.host_diagonal()
+            diag_err = max(diag_err, float(np.max(np.abs(d - want_d)
+                                                  / np.abs(want_d))))
+            d32 = torch.from_numpy(d.astype(np.float32))
+            nd = op.remove_diagonal()
+            dinv_cpu.append(OMEGA / predict_diag(model_cpu, nd, d32)
+                            .double().numpy())
+            nd_dev = SparseOperator.from_scipy(K, device=dev)
+            dinv.append(OMEGA / predict_diag(
+                model, nd_dev.remove_diagonal(), d32.to(dev))
+                .double().cpu().numpy())
+    dinv, dinv_cpu = np.stack(dinv), np.stack(dinv_cpu)
+    want = z["diag_learn_Dinv"]
+    rel_cpu = np.abs(dinv - dinv_cpu) / np.abs(dinv_cpu)
+    rel_art = np.abs(dinv - want) / np.abs(want)
+    require(diag_err <= 1e-6, diag_err)
+    require(bool(np.isfinite(dinv).all()) and float(rel_cpu.max()) <= 1e-5,
+            float(rel_cpu.max()))
+    require(float(rel_art.max()) <= 3e-2 and float(rel_art.mean()) < 1e-2,
+            (float(rel_art.max()), float(rel_art.mean())))
+    emit(dict(phase="jacobi_weights", matrices=int(dinv.shape[0]),
+              n=int(dinv.shape[1]), diag_A_max_rel_err=diag_err,
+              dinv_max_rel_err_vs_cpu=float(rel_cpu.max()),
+              dinv_max_rel_err_vs_artifact=float(rel_art.max()),
+              dinv_mean_rel_err_vs_artifact=float(rel_art.mean()),
+              seconds=time.perf_counter() - t0))
+
+
+def train_phase(dev, smi) -> None:
+    """Phase 16: the trainer at the reference's widths (n_mesh 38, batch
+    100, 20 probes, k = 3, MLP 5-50-20-1) on 300 matrices for 2 epochs
+    (4 steps), in both loss layouts; the first step's loss on the card
+    against the CPU and across layouts; ms per train step."""
+    base = dict(num_matrices=300, n_mesh=38, h_low=0.0005, epochs=2,
+                batch_size=100, lr=1e-2, seed=54681, n_train=200, n_val=50,
+                n_test=50, m_probes=20, gelfand_k=3, widths=(50, 20, 1),
+                log_every=0)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ds = small_band_dataset(base["num_matrices"], n=base["n_mesh"],
+                                seed=base["seed"], cache_dir=tmp, device=dev)
+        out["dataset_s"] = time.perf_counter() - t0
+        idx = np.arange(base["batch_size"])
+        part = ds.select(idx)
+        probes = _draw_probes(part, idx, base["m_probes"],
+                              np.random.default_rng(0))
+        first = {}
+        for layout in ("dia", "stencil"):
+            cfg = TrainJacobiConfig(**base, loss_layout=layout,
+                                    cache_dir=tmp)
+            t0 = time.perf_counter()
+            _, hist = train(cfg, dataset=ds, device=dev)
+            train_s = time.perf_counter() - t0
+            losses = hist["train_loss"] + hist["val_loss"] + [
+                hist["test_loss"]]
+            require(bool(np.isfinite(losses).all()), (layout, hist))
+            host = [np.asarray(a, np.float32) for a in (
+                matrix_stack(part, layout), feature_stack(part),
+                part.diags, probes)]
+            batch = [torch.from_numpy(a).to(dev) for a in host]
+            model = TrainableJacobiMLP(generator=base["seed"], device=dev)
+            opt = torch.optim.Adam(model.parameters(), lr=base["lr"])
+            plateau = PlateauScale(opt)
+            fn = make_loss_fn(model, ds, OMEGA, 3, layout=layout)
+            loss = float(train_step(model, opt, plateau, fn, batch, np.inf))
+            require(all(bool(torch.isfinite(q.grad).all())
+                        for q in model.parameters()), "finite gradients")
+            model_cpu = TrainableJacobiMLP(generator=base["seed"],
+                                           device="cpu")
+            with torch.no_grad():
+                loss_cpu = float(make_loss_fn(model_cpu, ds, OMEGA, 3,
+                                              layout=layout)(
+                    *map(torch.from_numpy, host)))
+            require(abs(loss - loss_cpu) <= 1e-4 * abs(loss_cpu),
+                    (layout, loss, loss_cpu))
+            first[layout] = loss
+            step = (lambda: train_step(model, opt, plateau, fn, batch,
+                                       np.inf))
+            ms = float(np.median([cuda_ms(step, iters=10, warmup=2)
+                                  for _ in range(5)]))
+            busy = profile_cycles(lambda c: [step() for _ in range(c)])
+            out[layout] = dict(history=hist, train_s=train_s,
+                               first_step_loss=loss,
+                               first_step_loss_cpu=loss_cpu,
+                               ms_per_step=ms,
+                               device_busy_ms_per_step=busy[
+                                   "device_busy_ms_per_cycle"],
+                               idle_share=1.0 - busy[
+                                   "device_busy_ms_per_cycle"] / ms,
+                               top_kernels_per_step=busy[
+                                   "top_kernels_per_cycle"][:6])
+    require(abs(first["dia"] - first["stencil"])
+            <= 1e-4 * abs(first["dia"]), first)
+    emit(dict(phase="train", tf32=False, **out, nvidia_smi=smi))
+
+
+def stream_training(A_p, flush, smi) -> list:
+    """Phases 13-14 (kernel K3 on the stream phase's operator): K3 on A and
+    A^T against its plain version at M = 20 with its times, and the
+    unstructured training flow of the JAX package's tests at full size;
+    returns K3's rows of the kernels line."""
+    dev, n, m = A_p.device, A_p.n_rows, M_PROBES
+    csr = A_p.to_scipy()
+    csr.sort_indices()
+    B, perm = rcm_csr(csr)  # the stream phase's kernel order
+    mm, mt = csr_pair(B, dev, width=n)
+    X = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (n, m)).astype(np.float32)).to(dev)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    errs, lib_errs, timing = {}, {}, {}
+    for key, op in (("A", mm), ("At", mt)):
+        y = op(X)
+        errs[key] = compare(y, op.plain(X), f"K3 on {key}")
+        # the library yardstick: one torch.sparse.mm (cuSPARSE SpMM) on
+        # the same CSR
+        lib_mat = csr_tensor(op)
+        lib_fn = (lambda lib_mat=lib_mat: torch.sparse.mm(lib_mat, X))
+        lib_errs[key] = compare(lib_fn(), y,
+                                f"torch.sparse.mm yardstick of K3 on {key}")
+        out = torch.empty_like(X)
+
+        def raw(op=op, out=out):
+            lib.csr_spmm_f32(op.row_ptr.data_ptr(), op.cols.data_ptr(),
+                             op.vals.data_ptr(), n, m, X.data_ptr(),
+                             out.data_ptr(), stream)
+        timing[key] = dict(
+            ms=cuda_ms_cold(raw, 20, flush),
+            warm_ms=float(np.median([cuda_ms(raw, iters=20)
+                                     for _ in range(5)])),
+            device_ms=profile_cycles(lambda c: [raw() for _ in range(c)])[
+                "device_busy_ms_per_cycle"],
+            plain_ms=cuda_ms_cold(lambda op=op: op.plain(X), 5, flush),
+            library_ms=cuda_ms_cold(lib_fn, 20, flush))
+    # each input read once, the output written once: the CSR, X, Y
+    bytes_moved = mm.nnz * 8 + (n + 1) * 4 + 2 * n * m * 4
+    bound_ms, bound_by = bound(bytes_moved, 2 * mm.nnz * m)
+    emit(dict(phase="spmm", n=n, nnz=mm.nnz, m=m,
+              results=list(errs.values()), library_vs_kernel=lib_errs,
+              bytes=bytes_moved, bound_ms=bound_ms, bound_by=bound_by,
+              times=timing, nvidia_smi=smi))
+
+    # ------------------------------------------------- train_stream
+    # the same operator negated (a positive diagonal, like the FEM
+    # matrices): the Gelfand loss on K3 against the plain COO path
+    rows, cols, vals = A_p.host_coo()
+    A_n = SparseOperator.from_coo(rows, cols, -vals, A_p.shape, device=dev)
+    B_n = (-B).tocsr()
+    B_n.sort_indices()
+    mm_n, mt_n = csr_pair(B_n, dev, width=n)
+    p = torch.from_numpy(perm.astype(np.int64)).to(dev)
+    probes = torch.from_numpy(uniform_probes(
+        n, m, np.random.default_rng(29)).astype(np.float32)).to(dev)
+    probes_k = probes[p].contiguous()
+
+    def loss_spmm(d):
+        return damping_factor_gelfand_spmm(mm_n, d[p], OMEGA, probes_k, k=3)
+
+    def loss_coo(d):
+        return damping_factor_gelfand(A_n, d, OMEGA, probes, k=3)
+
+    d0 = A_n.diagonal()
+    mm_n.launches_mm = mt_n.launches_mm = 0
+    d = d0.clone().requires_grad_(True)
+    l_s = loss_spmm(d)
+    g_s, = torch.autograd.grad(l_s, d)
+    l_s = float(l_s)
+    torch.cuda.synchronize()
+    launches = {"A": mm_n.launches_mm, "At": mt_n.launches_mm}
+    require(launches == {"A": 3, "At": 2}, launches)
+    d2 = d0.clone().requires_grad_(True)
+    l_c = loss_coo(d2)
+    g_c, = torch.autograd.grad(l_c, d2)
+    l_c = float(l_c)
+    require(abs(l_s - l_c) <= 1e-4 * abs(l_c), (l_s, l_c))
+    g_err = compare(g_s, g_c, "Gelfand gradient in the diagonal", 1e-3,
+                    1e-5)
+    # four plain gradient steps lower the loss. The JAX package's test
+    # steps 0.5 g at 4,000 rows; the gradient of the max-norm loss falls
+    # as 1/n per entry, and at n = 2^20 a step of 0.5 g moves the loss by
+    # less than one f32 ulp (the four losses are bit-identical), so the
+    # step grows with n: 0.5 n / 4096 (128 here, moving d by < 1e-3)
+    lr_d = 0.5 * n / 4096
+    dd, losses = d0.clone(), []
+    for _ in range(4):
+        dd.requires_grad_(True)
+        lo = loss_spmm(dd)
+        g, = torch.autograd.grad(lo, dd)
+        losses.append(float(lo.detach()))
+        dd = (dd - lr_d * g).detach()
+    require(all(b < a for a, b in zip(losses, losses[1:])), losses)
+
+    # the learned-D composition: features -> MLP (the committed weights)
+    # -> the SpMM loss -> backward -> Adam
+    model = load_params_npz(os.path.join(ARTIFACT, "params.npz"),
+                            TrainableJacobiMLP(device=dev))
+    nd, diag = A_n.remove_diagonal(), A_n.diagonal()
+    grads = {}
+    for name, lf in (("spmm", loss_spmm), ("coo", loss_coo)):
+        model.zero_grad(set_to_none=True)
+        lo = lf(model(jacobi_diag_features(nd, diag)).reshape(-1))
+        lo.backward()
+        grads[name] = (float(lo.detach()), [q.grad.clone() for q in
+                                   model.parameters()])
+    require(all(np.isfinite(grads[k][0]) for k in grads), grads)
+    mlp_errs = [compare(a, b, f"MLP gradient {i}", 1e-3, 1e-5)
+                for i, (a, b) in enumerate(zip(grads["spmm"][1],
+                                               grads["coo"][1]))]
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        lo = loss_spmm(model(jacobi_diag_features(nd, diag)).reshape(-1))
+        lo.backward()
+        opt.step()
+        return lo
+
+    ms_step = float(np.median([cuda_ms(step, iters=5, warmup=1)
+                               for _ in range(3)]))
+    busy = profile_cycles(lambda c: [step() for _ in range(c)])
+    emit(dict(phase="train_stream", n=n, m=m, k=3,
+              loss_spmm=l_s, loss_coo=l_c,
+              grad_vs_coo=g_err, launches_per_value_and_grad=launches,
+              diagonal_step=lr_d, diagonal_step_losses=losses,
+              learned_d_loss=grads["spmm"][0],
+              learned_d_loss_coo=grads["coo"][0],
+              mlp_grad_vs_coo=mlp_errs, ms_per_step=ms_step,
+              device_busy_ms_per_step=busy["device_busy_ms_per_cycle"],
+              idle_share=1.0 - busy["device_busy_ms_per_cycle"] / ms_step,
+              top_kernels_per_step=busy["top_kernels_per_cycle"][:8],
+              nvidia_smi=smi))
+    return [dict(name=f"csr_spmm[{key}]", route="cuda",
+                 source="gnnla_tpu_torch/csrc/csr_spmm.cu",
+                 replaces="gnnla_tpu/ops/pallas_stream.py:635",
+                 launches=launches[key], max_abs_err=errs[key]["max_abs_err"],
+                 ms=timing[key]["ms"], plain_ms=timing[key]["plain_ms"],
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=timing[key]["library_ms"])
+            for key in ("A", "At")]
 
 
 def main() -> int:
@@ -533,6 +895,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 2
+    # the MLP and every reference run in full f32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -542,6 +907,8 @@ def main() -> int:
     print(smi, flush=True)
     emit(dict(phase="device", name=name, count=torch.cuda.device_count(),
               cuda=torch.version.cuda, torch=torch.__version__,
+              matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+              cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
               nvidia_smi=smi))
 
     lib = _build.load(force=True)
@@ -688,7 +1055,11 @@ def main() -> int:
         top_kernels_per_cycle=prof["top_kernels_per_cycle"]))
 
     kernels += grid_path(A, plain, b, x_plain, flush, smi)
-    kernels += stream_path(A, flush, smi)
+    k2_rows, A_p = stream_path(A, flush, smi)
+    kernels += k2_rows
+    kernels += stream_training(A_p, flush, smi)
+    jacobi_weights(dev)
+    train_phase(dev, smi)
     emit({"kernels": kernels})
     # count: the cards visible to the process; the run drives card 0 only
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

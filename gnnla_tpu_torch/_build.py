@@ -23,7 +23,7 @@ from typing import List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("dia_spmv.cu", "csr_spmv.cu", "stencil.cu")
+SOURCES = ("dia_spmv.cu", "csr_spmv.cu", "csr_spmm.cu", "stencil.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC"]
 
@@ -111,6 +111,8 @@ def load(force: bool = False) -> ctypes.CDLL:
     lib.dia_spmv_f32.argtypes = [vp, vp, ci, ci, vp, vp, vp]
     lib.csr_spmv_f32.restype = ci
     lib.csr_spmv_f32.argtypes = [vp, vp, vp, ci, vp, vp, vp]
+    lib.csr_spmm_f32.restype = ci
+    lib.csr_spmm_f32.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
     lib.stencil_f32.restype = ci
     lib.stencil_f32.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp,
                                 ci, ci, ci, vp]

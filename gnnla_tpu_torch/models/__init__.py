@@ -1,11 +1,14 @@
 """Solver compositions: residual, Jacobi, Chebyshev, the two-grid V-cycle
-(the fused forms) and its grid paths."""
+(the fused forms) and its grid paths; the learned Jacobi diagonal."""
 
 from gnnla_tpu_torch.models.chebyshev import chebyshev
 from gnnla_tpu_torch.models.geometric import (GeometricVCycle,
                                               make_geometric_vcycle)
 from gnnla_tpu_torch.models.jacobi import jacobi
 from gnnla_tpu_torch.models.residual import residual
+from gnnla_tpu_torch.models.trainable_jacobi import (
+    TrainableJacobiMLP, init_params, jacobi_diag_features,
+    jacobi_diag_features_banded, predict_diag)
 from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid, StencilVCycle,
                                            TwoGridSetup, make_stencil_vcycle,
                                            setup_auto, setup_from_numpy,
@@ -19,4 +22,6 @@ __all__ = [
     "setup_with_stream", "setup_with_stream_p", "setup_auto", "AutoTwoGrid",
     "vcycle", "solve", "StencilVCycle", "make_stencil_vcycle",
     "GeometricVCycle", "make_geometric_vcycle",
+    "TrainableJacobiMLP", "init_params", "jacobi_diag_features",
+    "jacobi_diag_features_banded", "predict_diag",
 ]

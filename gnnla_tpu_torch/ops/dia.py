@@ -22,26 +22,30 @@ from gnnla_tpu_torch.ops.sparse import SparseOperator
 def dia_matvec(diags: torch.Tensor, offsets: Tuple[int, ...],
                x: torch.Tensor) -> torch.Tensor:
     """y[i] = sum_k diags[k, i] * x[i + offsets[k]] over in-range columns,
-    accumulated in k order. x may be [N] or [N, m]."""
-    n = diags.shape[1]
-    if x.shape[0] != n:
-        raise ValueError(f"matvec: x has {x.shape[0]} rows, operator "
-                         f"expects {n}")
+    accumulated in k order. diags is [K, N] with x [N] or [N, m], or a
+    batch of operators [B, K, N] with x [B, N] or [B, N, m] (the JAX
+    package's vmap over B, written out). Differentiable in diags and x."""
+    nb = diags.ndim - 2  # batch dims
+    n = diags.shape[-1]
+    if (x.ndim not in (nb + 1, nb + 2) or x.shape[:nb] != diags.shape[:nb]
+            or x.shape[nb] != n):
+        raise ValueError(f"matvec: x {tuple(x.shape)} does not fit "
+                         f"diagonals {tuple(diags.shape)}")
 
     def col(d):
-        return d if x.ndim == 1 else d[:, None]
+        return d if x.ndim == nb + 1 else d[..., None]
 
     y = torch.zeros_like(x)
     for k, off in enumerate(offsets):
-        d = diags[k]
+        d = col(diags[..., k, :])
+        m = n - abs(off)
         if off == 0:
-            y += col(d) * x
-        elif off > 0:
-            # row i uses x[i + off] for i in [0, n - off)
-            y[: n - off] += col(d[: n - off]) * x[off:]
-        else:
-            o = -off
-            y[o:] += col(d[o:]) * x[: n - o]
+            y = y + d * x
+        elif m > 0:
+            # row i uses x[i + off] for the rows where i + off is in range
+            lo, src = (0, off) if off > 0 else (-off, 0)
+            y.narrow(nb, lo, m).add_(d.narrow(nb, lo, m)
+                                     * x.narrow(nb, src, m))
     return y
 
 

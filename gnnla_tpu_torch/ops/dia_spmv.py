@@ -62,7 +62,10 @@ class DiaKernelOperator:
     n_rows, shape).
 
     `launches` counts the kernel launches made through `matvec`; it never
-    moves on the CPU path, which runs the plain version."""
+    moves on the CPU path, which runs the plain version. An x or diags
+    that requires grad is refused (NotImplementedError) on the CPU and the
+    card alike, until K1's backward is ported: no path returns a result
+    whose gradient the other path would cut."""
 
     def __init__(self, diags: torch.Tensor, offsets: Tuple[int, ...],
                  n: int, nnz: int):
@@ -87,6 +90,10 @@ class DiaKernelOperator:
         return DIAOperator(self.diags, self.offsets, self.n, self.nnz)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad or self.diags.requires_grad:
+            raise NotImplementedError(
+                "the gradient of the DIA kernel (the JAX package's custom "
+                "VJP) is not ported yet")
         if x.ndim > 1:
             raise ValueError("DiaKernelOperator matvec is vector-only")
         if x.device.type == "cpu":

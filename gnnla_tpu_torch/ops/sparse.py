@@ -41,6 +41,7 @@ class SparseOperator:
         self.row_ptr = row_ptr
         self.shape = (int(shape[0]), int(shape[1]))
         self._host_coo = host_coo
+        self._row_layout = None
 
     # ---------------------------------------------------------------- alias
     @property
@@ -97,6 +98,15 @@ class SparseOperator:
         return SparseOperator.from_coo(coo.row, coo.col, coo.data, coo.shape,
                                        dtype=dtype, device=device)
 
+    @staticmethod
+    def from_dense(A, *, dtype=torch.float32, tol: float = 0.0,
+                   device="cuda") -> "SparseOperator":
+        """The entries of a host dense matrix with |value| > tol."""
+        A = np.asarray(A)
+        rows, cols = np.nonzero(np.abs(A) > tol)
+        return SparseOperator.from_coo(rows, cols, A[rows, cols], A.shape,
+                                       dtype=dtype, device=device)
+
     def _derived(self, rows, cols, vals, shape, coalesce):
         return SparseOperator.from_coo(rows, cols, vals, shape,
                                        dtype=self.vals.dtype,
@@ -109,7 +119,8 @@ class SparseOperator:
         if self._host_coo is None:
             self._host_coo = (self.rows.cpu().numpy().astype(np.int64),
                               self.cols.cpu().numpy().astype(np.int64),
-                              self.vals.cpu().numpy().astype(np.float64))
+                              self.vals.detach().cpu().numpy().astype(
+                                  np.float64))
         return self._host_coo
 
     def host_diagonal(self) -> np.ndarray:
@@ -124,6 +135,13 @@ class SparseOperator:
         import scipy.sparse as sp
         rows, cols, vals = self.host_coo()
         return sp.coo_matrix((vals, (rows, cols)), shape=self.shape).tocsr()
+
+    def to_dense(self) -> torch.Tensor:
+        """The dense [n_rows, n_cols] matrix on the operator's device
+        (duplicates summed)."""
+        out = self.vals.new_zeros(self.shape)
+        return out.index_put_((self.rows.long(), self.cols.long()),
+                              self.vals, accumulate=True)
 
     # ------------------------------------------------------------- algebra
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
@@ -154,6 +172,31 @@ class SparseOperator:
         is_diag = self.rows == self.cols
         out = self.vals.new_zeros(min(self.shape))
         return out.index_add_(0, self.rows[is_diag], self.vals[is_diag])
+
+    def with_values(self, vals) -> "SparseOperator":
+        """Same pattern, new values (numpy, or a tensor, which may carry a
+        gradient). Host values keep the host-COO cache; the row layout
+        depends only on the pattern and always carries over."""
+        host = None
+        if isinstance(vals, np.ndarray):
+            if self._host_coo is not None:
+                host = (self._host_coo[0], self._host_coo[1],
+                        np.asarray(vals, dtype=np.float64))
+            vals = torch.from_numpy(np.asarray(
+                vals, torch.empty((), dtype=self.vals.dtype).numpy().dtype))
+        out = SparseOperator(self.rows, self.cols, vals.to(self.device),
+                             self.row_ptr, self.shape, host_coo=host)
+        out._row_layout = self._row_layout
+        return out
+
+    def row_layout(self):
+        """The pattern's DenseRowLayout (ops/segment.py), built once from
+        the host rows."""
+        if self._row_layout is None:
+            from gnnla_tpu_torch.ops.segment import DenseRowLayout
+            self._row_layout = DenseRowLayout(self.host_coo()[0],
+                                              self.n_rows)
+        return self._row_layout
 
     # ------------------------------------------------------- pattern views
     def remove_diagonal(self) -> "SparseOperator":

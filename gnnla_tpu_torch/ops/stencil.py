@@ -19,6 +19,9 @@ siblings' class.
   * `stencil_apply_plain` — K4's plain PyTorch version in its three modes
     (the jnp twin `stencil_matvec_jnp` iterated, with the kernel's affine
     and normalize epilogues). The CUDA kernel is `ops/stencil_kernel.py`.
+  * `stencil_matvec`, `stencil_transpose` — the differentiable roll
+    matvec the trainer's stencil loss layout runs (batched too), and A^T's
+    taps from A's.
 
 The TPU's VMEM guard (`_vmem_budget`, `_vmem_check`) has no counterpart:
 it is the TPU's limit, not the algorithm's. `MAX_TAPS` is semantic (a
@@ -73,6 +76,44 @@ def stencil_taps(op, grid_shape: Tuple[int, int]):
     planes = np.zeros((len(shifts), h * w), np.float64)
     np.add.at(planes, (k_idx, rows), vals)
     return shifts, planes
+
+
+def stencil_transpose(shifts: Sequence[Tuple[int, int]],
+                      planes: torch.Tensor):
+    """Tap planes of A^T from those of A (differentiable).
+
+    A^T's class for A's (dy, dx) is ((-dy) % H, (-dx) % W), and its plane
+    is A's plane moved to the target points: a (dy, dx) roll.
+    planes [K, H, W]; returns (shifts_t, planes_t)."""
+    h, w = planes.shape[1], planes.shape[2]
+    shifts_t = [((-dy) % h, (-dx) % w) for dy, dx in shifts]
+    planes_t = torch.stack([torch.roll(planes[k], (dy, dx), (0, 1))
+                            for k, (dy, dx) in enumerate(shifts)])
+    return shifts_t, planes_t
+
+
+def stencil_matvec(planes: torch.Tensor, shifts: Sequence[Tuple[int, int]],
+                   x: torch.Tensor) -> torch.Tensor:
+    """y = A x as rolls, differentiable in planes and x — the twin of the
+    JAX package's `stencil_matvec_jnp`, the matvec of the stencil loss
+    layout (not kernel K4):
+
+        y[r, c] = sum_k planes[k, r, c] * x[(r + dy_k) % H, (c + dx_k) % W]
+
+    planes [K, H, W] with x [H, W] or [H, W, m]; or a batch, planes
+    [B, K, H, W] with x [B, H, W] or [B, H, W, m]."""
+    nb = planes.ndim - 3  # batch dims
+    if x.ndim not in (nb + 2, nb + 3):
+        raise ValueError(f"x {tuple(x.shape)} does not fit planes "
+                         f"{tuple(planes.shape)}")
+    acc = None
+    for k, (dy, dx) in enumerate(shifts):
+        p = planes[..., k, :, :]
+        if x.ndim == nb + 3:
+            p = p[..., None]
+        term = p * torch.roll(x, (-dy, -dx), (nb, nb + 1))
+        acc = term if acc is None else acc + term
+    return acc
 
 
 def check_mode(mode: str, c: Optional[torch.Tensor]) -> None:

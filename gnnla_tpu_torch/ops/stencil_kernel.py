@@ -13,9 +13,9 @@ of gnnla_tpu/ops/pallas_stencil.py.
     the `make_stencil_*` constructors — the four users of the kernel
     (`PallasStencil*` in the JAX package), with the same taps.
 
-The gradient of `PallasStencilSpMV` (its custom VJP) comes with the
-training slice; until then every K4 call refuses inputs that require grad,
-on the CPU as on the card.
+The gradient of `PallasStencilSpMV` (its custom VJP) is not ported yet;
+until it is, every K4 call refuses inputs that require grad, on the CPU as
+on the card.
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ class StencilCall:
     counts kernel launches; it never moves on the CPU path.
 
     Not differentiable yet on either path: an input that requires grad
-    raises NotImplementedError (the VJP comes with the training slice)."""
+    raises NotImplementedError (the VJP is not ported yet)."""
 
     def __init__(self, shifts: Sequence[Tuple[int, int]],
                  taps: torch.Tensor, n_steps: int, mode: str):
@@ -159,7 +159,7 @@ class StencilCall:
         if any(t is not None and t.requires_grad for t in (self.taps, x2d, c)):
             raise NotImplementedError(
                 "the gradient of the stencil kernel (the JAX package's "
-                "custom VJP) comes with the training slice")
+                "custom VJP) is not ported yet")
         _require(tuple(x2d.shape) == self.grid_shape,
                  f"x {tuple(x2d.shape)} is not on the call's "
                  f"{self.grid_shape[0]}x{self.grid_shape[1]} grid")
@@ -187,7 +187,7 @@ class StencilSpMV:
     matvec_n(x)          on flat [n] vectors
 
     Not differentiable yet: an input that requires grad raises
-    NotImplementedError (the VJP comes with the training slice)."""
+    NotImplementedError (the VJP is not ported yet)."""
 
     def __init__(self, op, grid_shape: Tuple[int, int], n_steps: int = 1,
                  tap_dtype=None):

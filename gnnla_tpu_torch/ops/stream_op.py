@@ -4,7 +4,9 @@ gnnla_tpu/ops/stream_op.py.
 `StreamOperator` (square) and `RectStreamOperator` (rectangular, e.g. the
 AMG prolongation P) satisfy the matvec/rmatvec protocol the solvers
 consume, with both directions on kernel K2 (`ops/stream_spmv.py`): matvec
-on a CSR of A, rmatvec on a CSR of A^T.
+on a CSR of A, rmatvec on a CSR of A^T. Both carry gradients in the
+vector and in their CSR's values, as the JAX `StreamSpMV.apply`/`apply_t`
+do; each direction's gradient in the vector runs K2 on the other CSR.
 
 `stream_operator(op, reorder=True)` packs A in reverse Cuthill-McKee order
 (`stream_spmv.rcm_csr`), which bounds the column windows the JAX packer
@@ -25,7 +27,7 @@ import torch
 
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, check_stream_pattern,
-                                             rcm_csr)
+                                             link_transposes, rcm_csr)
 
 
 def _vector(v: torch.Tensor, n: int, what: str) -> None:
@@ -36,14 +38,17 @@ def _vector(v: torch.Tensor, n: int, what: str) -> None:
                          f"operator expects {n}")
 
 
-def _csr_pair(A, device: torch.device, width: int):
-    """Kernel-K2 wrappers of the host CSR A and of A^T, refused as the JAX
-    packer would refuse the width x width square it packs."""
+def csr_pair(A, device: torch.device, width: int):
+    """Linked K2/K3 wrappers (`CsrSpMV`) of the host CSR A and of A^T on
+    `device`, refused (ValueError) as the JAX packer would refuse the
+    width x width square it packs; for a square A, width is its side."""
     At = A.T.tocsr()
     At.sort_indices()
     check_stream_pattern(A.indptr, A.indices, width)
     check_stream_pattern(At.indptr, At.indices, width)
-    return CsrSpMV(A, device=device), CsrSpMV(At, device=device)
+    fwd, bwd = CsrSpMV(A, device=device), CsrSpMV(At, device=device)
+    link_transposes(fwd, bwd)
+    return fwd, bwd
 
 
 def _host_csr(op: SparseOperator, shape: Tuple[int, int]):
@@ -148,8 +153,8 @@ def rect_stream_operator(op: SparseOperator,
     if op.n_cols not in (n, n_cols):
         raise ValueError(f"expected an [{n} x {n_cols}] operator or its "
                          f"[{n} x {n}] square embedding, got {op.shape}")
-    fwd, bwd = _csr_pair(_host_csr(op, (n, int(n_cols))), op.device,
-                         width=n)
+    fwd, bwd = csr_pair(_host_csr(op, (n, int(n_cols))), op.device,
+                        width=n)
     return RectStreamOperator(fwd, bwd)
 
 
@@ -170,7 +175,7 @@ def stream_operator(op: SparseOperator, *,
         perm = torch.from_numpy(p.astype(np.int64)).to(op.device)
         iperm = torch.from_numpy(np.argsort(p).astype(np.int64)).to(
             op.device)
-    fwd, bwd = _csr_pair(A, op.device, width=op.n_rows)
+    fwd, bwd = csr_pair(A, op.device, width=op.n_rows)
     diag = torch.from_numpy(op.host_diagonal().astype(np.float32)).to(
         op.device)
     return StreamOperator(fwd, bwd, diag, perm, iperm)

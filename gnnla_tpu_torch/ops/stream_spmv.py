@@ -1,18 +1,27 @@
-"""Kernel K2, the general-pattern SpMV — the counterpart of
-gnnla_tpu/ops/pallas_stream.py.
+"""Kernels K2, the general-pattern SpMV, and K3, the multi-RHS SpMM — the
+counterparts of gnnla_tpu/ops/pallas_stream.py's `StreamSpMV` and
+`StreamSpMM`.
 
-The JAX stream kernel computes y = A x on any sparsity pattern through a
-pack designed for the TPU's 8x128 vector registers. On the card the same
-function is the CSR kernel `csrc/csr_spmv.cu`; its transposed apply is
-the same kernel on a CSR of A^T built once at setup, as the JAX package
-builds a transposed pack.
+The JAX stream kernels compute y = A x (and Y = A X over M columns in one
+pass over the matrix) on any sparsity pattern through a pack designed for
+the TPU's 8x128 vector registers. On the card the same functions are the
+CSR kernels `csrc/csr_spmv.cu` and `csrc/csr_spmm.cu`; their transposed
+apply is the same kernel on a CSR of A^T built once at setup, as the JAX
+package builds a transposed pack. The TPU's multi-RHS relayout ([t, M*8,
+128] in, [t, 8, 128*M] out) has no counterpart: K3 takes the caller's
+[n, M] row-major block, in the operator's (kernel) order.
 
-  * `CsrSpMV`              — K2's wrapper: a CSR held on one device;
-                             calling it launches the kernel on CUDA
-                             tensors, and runs the plain version only for
-                             CPU tensors.
-  * `csr_spmv_plain`       — K2's plain PyTorch version (index_select +
-                             index_add_).
+  * `CsrSpMV`              — the wrapper of both: a CSR held on one
+                             device; calling it on x [n] launches K2, on
+                             X [n, M] K3, for CUDA tensors, and runs the
+                             plain version only for CPU tensors.
+                             Differentiable in x and in the values, with
+                             the JAX StreamSpMV/StreamSpMM VJP (the kernel
+                             on the CSR of A^T for x, sum_m ybar[row, m] *
+                             x[col, m] for the values) when it is linked
+                             to its transpose (`link_transposes`).
+  * `csr_spmv_plain`       — the plain PyTorch version of both
+                             (index_select + index_add_).
   * `check_stream_pattern` — the refusals of the JAX packer
                              (`build_stream`), so the port refuses exactly
                              the patterns the JAX package refuses and both
@@ -24,7 +33,7 @@ builds a transposed pack.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,9 +101,11 @@ def rcm_csr(A_csr):
 def csr_spmv_plain(rows: torch.Tensor, cols: torch.Tensor,
                    vals: torch.Tensor, x: torch.Tensor,
                    n_rows: int) -> torch.Tensor:
-    """K2's plain version: y[r] = sum over entries (r, c, v) of v * x[c]."""
-    y = x.new_zeros(n_rows)
-    return y.index_add_(0, rows, vals * x.index_select(0, cols))
+    """K2's and K3's plain version: y[r] = sum over entries (r, c, v) of
+    v * x[c], for x [n_cols] (K2) or [n_cols, M] (K3, row by row)."""
+    v = vals if x.ndim == 1 else vals[:, None]
+    y = x.new_zeros((n_rows,) + tuple(x.shape[1:]))
+    return y.index_add_(0, rows, v * x.index_select(0, cols))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -105,8 +116,9 @@ def _require(cond: bool, msg: str) -> None:
 def csr_spmv_cuda(row_ptr: torch.Tensor, cols: torch.Tensor,
                   vals: torch.Tensor, x: torch.Tensor,
                   n_rows: int) -> torch.Tensor:
-    """Launch K2: y = A x for a CSR (row_ptr [n_rows+1] int32, cols [nnz]
-    int32, vals [nnz] f32) and x f32, all contiguous on one CUDA device."""
+    """Launch K2 (x [n_cols]) or K3 (x [n_cols, M], row-major): y = A x
+    for a CSR (row_ptr [n_rows+1] int32, cols [nnz] int32, vals [nnz]
+    f32) and x f32, all contiguous on one CUDA device."""
     _require(x.device.type == "cuda", f"x lies on {x.device}, not CUDA")
     _require(all(t.device == x.device for t in (row_ptr, cols, vals)),
              "row_ptr, cols, vals and x must share one device")
@@ -114,61 +126,138 @@ def csr_spmv_cuda(row_ptr: torch.Tensor, cols: torch.Tensor,
              "vals and x must be float32")
     _require(row_ptr.dtype == torch.int32 and cols.dtype == torch.int32,
              "row_ptr and cols must be int32")
-    _require(x.ndim == 1 and row_ptr.shape == (n_rows + 1,)
+    _require(x.ndim in (1, 2) and x.shape[-1] >= 1
+             and row_ptr.shape == (n_rows + 1,)
              and cols.shape == vals.shape,
              f"shapes row_ptr {tuple(row_ptr.shape)}, cols "
              f"{tuple(cols.shape)}, vals {tuple(vals.shape)}, x "
              f"{tuple(x.shape)} disagree with n_rows={n_rows}")
     _require(all(t.is_contiguous() for t in (row_ptr, cols, vals, x)),
              "inputs must be contiguous")
-    y = x.new_empty(n_rows)
+    y = x.new_empty((n_rows,) + tuple(x.shape[1:]))
     lib = _build.load()
+    args = (row_ptr.data_ptr(), cols.data_ptr(), vals.data_ptr(), n_rows)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.check(lib.csr_spmv_f32(row_ptr.data_ptr(), cols.data_ptr(),
-                                      vals.data_ptr(), n_rows, x.data_ptr(),
-                                      y.data_ptr(), stream), "csr_spmv_f32")
+        if x.ndim == 1:
+            _build.check(lib.csr_spmv_f32(*args, x.data_ptr(), y.data_ptr(),
+                                          stream), "csr_spmv_f32")
+        else:
+            _build.check(lib.csr_spmm_f32(*args, x.shape[1], x.data_ptr(),
+                                          y.data_ptr(), stream),
+                         "csr_spmm_f32")
     return y
 
 
-class CsrSpMV:
-    """y = A x for one CSR matrix on one device — K2's wrapper.
+def device_csr(A_csr, device: torch.device):
+    """(row_ptr int32, cols int32, vals f32) of a scipy CSR on `device`."""
+    if A_csr.nnz >= 2 ** 31:
+        raise ValueError("csr: nnz must fit int32 row pointers")
 
-    `launches` counts kernel launches; it never moves on the CPU path,
-    which runs the plain version."""
+    def put(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
+
+    return (put(A_csr.indptr, np.int32), put(A_csr.indices, np.int32),
+            put(A_csr.data, np.float32))
+
+
+def entry_rows(row_ptr: torch.Tensor, nnz: int) -> torch.Tensor:
+    """The COO row of each CSR entry, derived per call: the kernels never
+    read it, so it is not kept on the device."""
+    return torch.repeat_interleave(
+        torch.arange(row_ptr.shape[0] - 1, device=row_ptr.device),
+        torch.diff(row_ptr).long(), output_size=nnz)
+
+
+NO_TRANSPOSE = "built with with_transpose=False; gradient unavailable"
+
+
+class _CsrGrad(torch.autograd.Function):
+    """y = A(vals) x on K2 (x [n]) or K3 (x [n, M]) with the VJP of the
+    JAX `StreamSpMV.apply` / `StreamSpMM.apply` (pallas_stream.py:940-958,
+    1134-1153): x's cotangent is the same kernel on the CSR of A^T (which
+    keeps its own values, as the JAX transposed pack does), the values'
+    sum_m ybar[row, m] * x[col, m] (:842-873, :1036-1065). Each is
+    computed only when autograd asks for it, as JAX drops the unused one:
+    the first Gelfand step's input is the fixed probe block."""
+
+    @staticmethod
+    def forward(ctx, x, vals, csr):
+        ctx.csr = csr
+        if ctx.needs_input_grad[1]:
+            ctx.save_for_backward(x)
+        return csr.launch(x, vals)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        csr = ctx.csr
+        if csr.transpose is None:
+            raise ValueError(NO_TRANSPOSE)
+        ybar = ybar.contiguous()
+        xbar = dvals = None
+        if ctx.needs_input_grad[0]:
+            xbar = csr.transpose.launch(ybar, csr.transpose.vals)
+        if ctx.needs_input_grad[1]:
+            x, = ctx.saved_tensors
+            dvals = (ybar.index_select(0, entry_rows(csr.row_ptr, csr.nnz))
+                     * x.index_select(0, csr.cols))
+            if dvals.ndim == 2:
+                dvals = dvals.sum(dim=1)
+        return xbar, dvals, None
+
+
+class CsrSpMV:
+    """y = A x for one CSR matrix on one device, for a vector x [n_cols]
+    (kernel K2) or a block X [n_cols, M] (kernel K3, the multi-RHS SpMM) —
+    the wrapper of both.
+
+    `launches` counts K2 launches and `launches_mm` K3 launches, backward
+    ones included; neither moves on the CPU path, which runs the plain
+    version. `transpose` is the CsrSpMV of A^T that the gradient in x runs
+    on (None: no gradient, the JAX package's with_transpose=False)."""
 
     def __init__(self, A_csr, *, device: torch.device):
         """A_csr: scipy CSR with sorted indices (values cast to f32)."""
-        if A_csr.nnz >= 2 ** 31:
-            raise ValueError("csr_spmv: nnz must fit int32 row pointers")
-        indptr = np.asarray(A_csr.indptr, dtype=np.int64)
         self.shape: Tuple[int, int] = (int(A_csr.shape[0]),
                                        int(A_csr.shape[1]))
         self.nnz = int(A_csr.nnz)
-
-        def put(a, dt):
-            return torch.from_numpy(np.ascontiguousarray(a, dt)).to(device)
-
-        self.row_ptr = put(indptr, np.int32)
-        self.cols = put(A_csr.indices, np.int32)
-        self.vals = put(A_csr.data, np.float32)
+        self.row_ptr, self.cols, self.vals = device_csr(A_csr, device)
+        self.transpose = None
         self.launches = 0
+        self.launches_mm = 0
 
-    def plain(self, x: torch.Tensor) -> torch.Tensor:
-        # the COO row of each entry, derived per call: the kernel path
-        # never reads it, so it is not kept on the device
-        rows = torch.repeat_interleave(
-            torch.arange(self.shape[0], device=self.row_ptr.device),
-            torch.diff(self.row_ptr).long(), output_size=self.nnz)
-        return csr_spmv_plain(rows, self.cols, self.vals, x, self.shape[0])
+    def plain(self, x: torch.Tensor,
+              vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The plain version on this CSR (default: the stored values)."""
+        return csr_spmv_plain(entry_rows(self.row_ptr, self.nnz), self.cols,
+                              self.vals if vals is None else vals, x,
+                              self.shape[0])
+
+    def launch(self, x: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        """y = A(vals) x with no autograd: the kernel on a CUDA tensor
+        (counted), the plain version on a CPU tensor."""
+        if x.device.type == "cpu":
+            return self.plain(x, vals)
+        y = csr_spmv_cuda(self.row_ptr, self.cols, vals, x, self.shape[0])
+        if x.ndim == 1:
+            self.launches += 1
+        else:
+            self.launches_mm += 1
+        return y
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if x.ndim != 1 or x.shape[0] != self.shape[1]:
+        if x.ndim not in (1, 2) or x.shape[0] != self.shape[1]:
             raise ValueError(f"csr_spmv: x has shape {tuple(x.shape)}, "
-                             f"operator expects [{self.shape[1]}]")
-        if x.device.type == "cpu":
-            return self.plain(x)
-        y = csr_spmv_cuda(self.row_ptr, self.cols, self.vals, x,
-                          self.shape[0])
-        self.launches += 1
-        return y
+                             f"operator expects [{self.shape[1]}] or "
+                             f"[{self.shape[1]}, M]")
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.vals.requires_grad):
+            return _CsrGrad.apply(x, self.vals, self)
+        return self.launch(x, self.vals)
+
+
+def link_transposes(fwd: CsrSpMV, bwd: CsrSpMV) -> None:
+    """Make fwd and bwd (the CSRs of A and A^T) each other's transpose,
+    so each direction's gradient in x runs on the other: the mirrored VJP
+    of the JAX `apply_t` (pallas_stream.py:964-980)."""
+    fwd.transpose, bwd.transpose = bwd, fwd

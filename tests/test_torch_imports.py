@@ -37,7 +37,12 @@ def test_port_files_found():
                  "gnnla_tpu_torch/ops/dia_spmv.py",
                  "gnnla_tpu_torch/ops/stream_spmv.py",
                  "gnnla_tpu_torch/ops/stencil.py",
-                 "gnnla_tpu_torch/ops/stencil_kernel.py"):
+                 "gnnla_tpu_torch/ops/stencil_kernel.py",
+                 "gnnla_tpu_torch/ops/band.py",
+                 "gnnla_tpu_torch/core/block.py",
+                 "gnnla_tpu_torch/models/trainable_jacobi.py",
+                 "gnnla_tpu_torch/training/train_jacobi.py",
+                 "gnnla_tpu_torch/training/spectral_loss.py"):
         assert must in files
 
 
@@ -52,7 +57,9 @@ def test_no_jax_or_gnnla_tpu_imports(path):
 def test_import_pulls_in_no_jax():
     code = ("import sys, gnnla_tpu_torch.models, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
-            "gnnla_tpu_torch.ops.stencil_kernel, gnnla_tpu_torch.native_ext; "
+            "gnnla_tpu_torch.ops.stencil_kernel, gnnla_tpu_torch.native_ext, "
+            "gnnla_tpu_torch.training, "
+            "gnnla_tpu_torch.training.checkpoints; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -73,6 +80,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         SparseOperator.from_coo([0], [0], [1.0], (1, 1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         setup_from_numpy({})
+    from gnnla_tpu_torch.models.trainable_jacobi import TrainableJacobiMLP
+    from gnnla_tpu_torch.problems import small_band_matrix
+    from gnnla_tpu_torch.training import (TrainJacobiConfig,
+                                          small_band_dataset, train_jacobi)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainableJacobiMLP()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        small_band_matrix(6, 0.01)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        small_band_dataset(2, n=6)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_jacobi(TrainJacobiConfig(num_matrices=2, n_mesh=6,
+                                       cache_dir=None))
     # asked for explicitly, the CPU runs the plain versions
     assert laplacian_2d(4, device="cpu").device.type == "cpu"
 
@@ -91,6 +111,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         csr_spmv_cuda(torch.zeros(5, dtype=torch.int32),
                       torch.zeros(0, dtype=torch.int32), torch.zeros(0), x, 4)
     with pytest.raises(ValueError, match="not CUDA"):
+        csr_spmv_cuda(torch.zeros(5, dtype=torch.int32),
+                      torch.zeros(0, dtype=torch.int32), torch.zeros(0),
+                      torch.zeros(4, 2), 4)
+    with pytest.raises(ValueError, match="not CUDA"):
         stencil_cuda(torch.zeros(1, 2, 2), torch.zeros(2, dtype=torch.int32),
                      torch.zeros(2, 2), 1, "plain")
 
@@ -100,7 +124,8 @@ def test_build_is_lazy():
     kernel, so the CPU needs no nvcc."""
     code = ("import chip_smoke, gnnla_tpu_torch.models, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
-            "gnnla_tpu_torch.ops.stencil_kernel; "
+            "gnnla_tpu_torch.ops.stencil_kernel, "
+            "gnnla_tpu_torch.training; "
             "from gnnla_tpu_torch import _build; "
             "raise SystemExit(0 if _build._lib is None else 1)")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -264,10 +264,10 @@ def test_spmv_refuses_inputs_that_require_grad():
     A_j, gs = grid_operator("lap20")
     s = tk.make_stencil_spmv(carry(A_j), gs)
     x = torch.zeros(gs, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         s.apply(x)
     s.taps.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         s.apply(x.detach())
     with pytest.raises(ValueError, match="n_steps"):
         tk.make_stencil_spmv(carry(A_j), gs, n_steps=0)
@@ -275,14 +275,14 @@ def test_spmv_refuses_inputs_that_require_grad():
 
 @pytest.mark.parametrize("user", ["jacobi", "power", "residual"])
 def test_users_refuse_inputs_that_require_grad(user):
-    """Every K4 call refuses, on the CPU as on the card, until the
-    training slice brings the VJP: no path returns a result whose gradient
-    the other path would cut."""
+    """Every K4 call refuses, on the CPU as on the card, until K4's VJP
+    is ported: no path returns a result whose gradient the other path
+    would cut."""
     A_j, gs = grid_operator("nonsym20")
     A_t = carry(A_j)
     b = torch.ones(A_j.n_rows, requires_grad=True)
     x = torch.zeros(A_j.n_rows)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         if user == "jacobi":
             tk.make_stencil_jacobi(A_t, gs).smooth(b, x)
         elif user == "power":
