@@ -90,6 +90,43 @@ Training the learned Jacobi smoother (kernel K3, the multi-RHS SpMM):
                     losses and gradients, the first step's loss equal to
                     the CPU's and across layouts (rtol 1e-4), ms per step
                     and idle share.
+The last kernel contracts (K1's backward and bf16 storage, K4's backward):
+ 17. dia_grad     — K1's autograd Function on A (K = 5) and the fast Ac
+                    (K = 415): the gradients of <w, A x> in x and in the
+                    diagonals against the plain DIA matvec's autograd (rtol
+                    1e-5 + 1e-5 max|g|); exactly 1 + 1 K1 launches per
+                    forward and backward; `dia_spmv[At]`, `dia_spmv[Act]`
+                    rows (the backward's launch, cuSPARSE on the CSR of
+                    A^T as the yardstick).
+ 18. dia_bf16     — K1 on bf16 diagonals: on A bitwise equal to the f32
+                    kernel, on Ac against the plain bf16-stored version;
+                    `dia_spmv_bf16[A]`, `dia_spmv_bf16[Ac]` rows (2-byte
+                    diagonals in the bound).
+ 19. stencil_grad — `StencilSpMV` at 1 and 3 steps on 1024^2: the x and taps
+                    gradients against the plain roll twin's autograd;
+                    exactly n_steps K4 launches for x's cotangent; a
+                    `stencil[plain,T]` row.
+The multilevel hierarchies and the Krylov solvers:
+ 20. multigrid    — `setup_sa_multigrid(A, seed=0)`, `setup_with_dia_multigrid(
+                    kernel=True)`: levels, rows, nnz, K, which levels are on
+                    K1, setup seconds, diagonal bytes; `mg_pcg(n_iters=30,
+                    flip_sign=True)` on the main right-hand side reaches
+                    1e-8 ||b|| in 15 +- 1 iterations (the JAX package's
+                    bench took 15), exact K1 launches per level, x within
+                    1e-4 of max|x| of the same hierarchy on plain DIA
+                    levels, a 64^2 run within 2e-5 of the port's CPU path;
+                    ms per iteration (median of 5 runs), idle share, peak
+                    memory; the classical `setup_multigrid` (pmis) cycles
+                    lower the residual.
+ 21. pcg          — `amg_pcg(n_iters=10, flip_sign=True)` on the fast
+                    setup: below plain `cg` at 10 iterations, exact K1/K2
+                    launches, x within 1e-4 of the plain setup's; ms per
+                    iteration.
+ 22. convergence  — per-cycle convergence factors at 64^2, 128^2, 256^2 of
+                    the classical two-grid cycle (fast setup, 8 cycles) and
+                    the SA V-cycle (K1 levels, n_pre = n_post = 2, 8
+                    cycles): SA below classical, each within 0.01 of the
+                    JAX package's table (BENCH_r05.json).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, and the script exits non-zero.
@@ -100,6 +137,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -111,17 +149,26 @@ import torch
 
 from gnnla_tpu_torch import _build, native_ext
 from gnnla_tpu_torch.models.geometric import GeometricVCycle
+from gnnla_tpu_torch.models.krylov import amg_pcg, cg, mg_pcg
+from gnnla_tpu_torch.models.multigrid import (multigrid_cycle,
+                                              setup_multigrid,
+                                              setup_sa_multigrid,
+                                              setup_with_dia_multigrid)
 from gnnla_tpu_torch.models.trainable_jacobi import (TrainableJacobiMLP,
                                                      jacobi_diag_features,
                                                      predict_diag)
 from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid, setup_twogrid,
                                            setup_with_dia,
                                            setup_with_stream_p, solve)
-from gnnla_tpu_torch.ops.dia import DIAOperator
-from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+from gnnla_tpu_torch.ops.dia import DIAOperator, dia_matvec
+from gnnla_tpu_torch.ops.dia_spmv import (DiaKernelOperator,
+                                          dia_kernel_operator)
 from gnnla_tpu_torch.ops.sparse import SparseOperator
+from gnnla_tpu_torch.ops.stencil import (stencil_apply_plain,
+                                         stencil_matvec, stencil_transpose)
 from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
                                                 make_stencil_power,
+                                                make_stencil_spmv,
                                                 stencil_args,
                                                 stencil_buffers,
                                                 stencil_launches)
@@ -153,12 +200,18 @@ RTOL = 1e-5
 # 1/sqrt within a few ulp; the scales they apply differ by less than
 # 64 * 2^-24, and those differences add over the steps.
 NORM_ULPS_PER_STEP = 64
+K1_ROW = ("gnnla_tpu_torch/csrc/dia_spmv.cu",
+          "gnnla_tpu/ops/pallas_spmv.py:41")
 K2_ROW = ("csr_spmv", "gnnla_tpu_torch/csrc/csr_spmv.cu",
           "gnnla_tpu/ops/pallas_stream.py:479")
+K4_ROW = ("gnnla_tpu_torch/csrc/stencil.cu",
+          "gnnla_tpu/ops/pallas_stencil.py:126")
+PCG_ITERS = 30
+CONV_SIZES = (64, 128, 256)
 OMEGA = 2.0 / 3.0
 M_PROBES = 20  # the trainer's m_probes: K3's width on the training path
-ARTIFACT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "artifacts", "jacobi")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+ARTIFACT = os.path.join(ROOT, "artifacts", "jacobi")
 
 
 def emit(obj) -> None:
@@ -247,6 +300,22 @@ def csr_raw(lib, csr, x: torch.Tensor):
                          y.data_ptr(), stream)
     r_, c_ = csr.shape
     return raw, csr.nnz * 8 + (r_ + 1) * 4 + c_ * 4 + r_ * 4, 2 * csr.nnz
+
+
+def dia_raw(lib, diags: torch.Tensor, offsets_dev: torch.Tensor,
+            x: torch.Tensor):
+    """(raw launch of K1 on diags [K, n] (f32 or bf16) and x, bytes,
+    flops): the diagonals, offsets and x read once, y written once."""
+    k, m = diags.shape
+    y = torch.empty(m, device=x.device)
+    fn = (lib.dia_spmv_f32 if diags.dtype == torch.float32
+          else lib.dia_spmv_bf16)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        fn(diags.data_ptr(), offsets_dev.data_ptr(), k, m, x.data_ptr(),
+           y.data_ptr(), stream)
+    return raw, k * m * diags.element_size() + 2 * m * 4 + 4 * k, 2 * k * m
 
 
 def library_call(op, x2d: torch.Tensor, c2d=None):
@@ -458,8 +527,7 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
             library_ms = cuda_ms_cold(lib_fn, 20, flush)
         row = dict(
             name=f"stencil[{key}]", route="cuda",
-            source="gnnla_tpu_torch/csrc/stencil.cu",
-            replaces="gnnla_tpu/ops/pallas_stencil.py:126",
+            source=K4_ROW[0], replaces=K4_ROW[1],
             launches=launches.get(key, 0),
             max_abs_err=errs[key]["max_abs_err"],
             ms=cuda_ms_cold(raw, 20, flush),
@@ -887,6 +955,374 @@ def stream_training(A_p, flush, smi) -> list:
             for key in ("A", "At")]
 
 
+def warm_and_device_ms(raw) -> dict:
+    """A raw launch back to back, L2 warm (median of 5 windows of 20),
+    and the profiler's device time per kernel launch, which no host delay
+    can inflate: its device time over the launches it recorded, since it
+    can drop some of a window's (the count it kept per call is beside)."""
+    top = profile_cycles(lambda c: [raw() for _ in range(c)])[
+        "top_kernels_per_cycle"]
+    kept = sum(t["launches"] for t in top)
+    return dict(warm_ms=float(np.median([cuda_ms(raw, iters=20)
+                                         for _ in range(5)])),
+                device_ms_per_launch=(sum(t["ms"] for t in top) / kept
+                                      if kept else None),
+                profiler_launches_per_call=kept)
+
+
+def kernel_grads(A, plain, fast, flush, smi) -> list:
+    """Phases 17-19 (K1's backward and bf16 storage, K4's backward) on the
+    1024^2 Laplacian and the fast setup's Ac; returns the rows of the
+    backward launches and the bf16 kernel."""
+    dev, lib = A.device, _build.load()
+    gen = np.random.default_rng(17)
+
+    def rand(n):
+        return torch.from_numpy(gen.standard_normal(n).astype(
+            np.float32)).to(dev)
+
+    rows_out = []
+    A_t = A.transpose()  # the CSR of A^T: the x cotangents' yardstick
+
+    # ---------------------------------------------------------- dia_grad
+    grad_out = {}
+    for key in ("A", "Ac"):
+        op = getattr(fast, key)
+        x, w = rand(op.n), rand(op.n)
+        op.launches = 0
+        op.diags.requires_grad_(True)
+        x1 = x.clone().requires_grad_(True)
+        y = op.matvec(x1)
+        fwd = op.launches
+        torch.dot(w, y).backward()
+        torch.cuda.synchronize()
+        launches = dict(forward=fwd, backward=op.launches - fwd)
+        require(launches == dict(forward=1, backward=1), (key, launches))
+        gx, gd = x1.grad, op.diags.grad
+        op.diags.requires_grad_(False)
+        op.diags.grad = None
+        # the plain twin's autograd on the same inputs
+        d2 = op.diags.detach().clone().requires_grad_(True)
+        x2 = x.clone().requires_grad_(True)
+        torch.dot(w, dia_matvec(d2, op.offsets, x2)).backward()
+        errs = dict(x_grad=compare(gx, x2.grad, f"{key}: x gradient"),
+                    diags_grad=compare(gd, d2.grad,
+                                       f"{key}: diagonals gradient"))
+        del gd, d2, x2
+        t = op.transposed
+        raw, bytes_moved, flops = dia_raw(lib, t.diags, op.offsets_t_dev, w)
+        lib_mat = csr_tensor(A_t if key == "A" else plain.Ac.transpose())
+        errs["library"] = compare(lib_mat @ w, gx,
+                                  f"cuSPARSE A^T w yardstick of {key}")
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        rows_out.append(dict(
+            name=f"dia_spmv[{key}t]", route="cuda", source=K1_ROW[0],
+            replaces=K1_ROW[1], launches=launches["backward"],
+            max_abs_err=errs["x_grad"]["max_abs_err"],
+            ms=cuda_ms_cold(raw, 20, flush),
+            plain_ms=cuda_ms_cold(lambda: dia_matvec(t.diags, t.offsets, w),
+                                  5, flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms_cold(lambda: lib_mat @ w, 20, flush)))
+        grad_out[key] = dict(K=len(op.offsets), K_transposed=len(t.offsets),
+                             launches=launches, results=errs,
+                             **warm_and_device_ms(raw))
+        del lib_mat
+    emit(dict(phase="dia_grad", rtol=RTOL, atol=f"{RTOL} * max|g|",
+              **grad_out, nvidia_smi=smi))
+
+    # ---------------------------------------------------------- dia_bf16
+    bf_out = {}
+    for key in ("A", "Ac"):
+        op32 = getattr(fast, key)
+        op16 = dia_kernel_operator(op32.plain(), diag_dtype=torch.bfloat16)
+        x = rand(op32.n)
+        y16 = op16.matvec(x)
+        launches = op16.launches
+        y_plain = op16.plain().matvec(x)  # bf16-stored diagonals upcast
+        err = compare(y16, y_plain, f"bf16 K1 on {key}")
+        bitwise = bool(torch.equal(y16, op32.matvec(x)))
+        if key == "A":  # -4 and 1 are exact in bf16
+            require(bitwise, "bf16 K1 on A must equal the f32 kernel")
+        raw, bytes_moved, flops = dia_raw(lib, op16.diags, op16.offsets_dev,
+                                          x)
+        lib_mat = csr_tensor(getattr(plain, key))
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        rows_out.append(dict(
+            name=f"dia_spmv_bf16[{key}]", route="cuda", source=K1_ROW[0],
+            replaces=K1_ROW[1], launches=launches,
+            max_abs_err=err["max_abs_err"], ms=cuda_ms_cold(raw, 20, flush),
+            plain_ms=cuda_ms_cold(lambda: op16.plain().matvec(x), 5, flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms_cold(lambda: lib_mat @ x, 20, flush)))
+        bf_out[key] = dict(K=len(op16.offsets), result=err,
+                           bitwise_equal_to_f32_kernel=bitwise,
+                           max_rel_err_vs_f32_kernel=float(
+                               (y16 - op32.matvec(x)).abs().max()
+                               / op32.matvec(x).abs().max()),
+                           **warm_and_device_ms(raw))
+        del op16, lib_mat
+    emit(dict(phase="dia_bf16", **bf_out, nvidia_smi=smi))
+
+    # ------------------------------------------------------ stencil_grad
+    gs = (N_GRID, N_GRID)
+    st_out, st_rows = {}, []
+    stream = torch.cuda.current_stream().cuda_stream
+    for n_steps in (1, 3):
+        sp_ = make_stencil_spmv(A, gs, n_steps)
+        x, w = rand(A.n_rows).reshape(gs), rand(A.n_rows).reshape(gs)
+        sp_.taps.requires_grad_(True)
+        x1 = x.clone().requires_grad_(True)
+        sp_._call.launches = sp_.launches_t = 0
+        torch.sum(w * sp_.apply(x1)).backward()
+        torch.cuda.synchronize()
+        launches = dict(forward=sp_._call.launches,
+                        x_cotangent=sp_.launches_t)
+        require(launches == dict(forward=n_steps, x_cotangent=n_steps),
+                (n_steps, launches))
+        gx, gt = x1.grad, sp_.taps.grad
+        sp_.taps.requires_grad_(False)
+        t2 = sp_.taps.detach().clone().requires_grad_(True)
+        x2 = x.clone().requires_grad_(True)
+        y2 = x2
+        for _ in range(n_steps):
+            y2 = stencil_matvec(t2, sp_.shifts, y2)
+        torch.sum(w * y2).backward()
+        errs = dict(x_grad=compare(gx, x2.grad, f"{n_steps} steps: x grad"),
+                    taps_grad=compare(gt, t2.grad,
+                                      f"{n_steps} steps: taps grad"))
+        # x's cotangent alone: K4 on the transposed taps
+        _, planes_t = stencil_transpose(sp_.shifts, sp_.taps.float())
+        planes_t = planes_t.contiguous()
+        bufs = stencil_buffers(w, n_steps, "plain")
+        args = stencil_args(planes_t, sp_._shifts_t_dev, w, n_steps,
+                            "plain", None, *bufs)
+
+        def raw(args=args):
+            lib.stencil_f32(*args, stream)
+        k = planes_t.shape[0]
+        bound_ms, bound_by = bound((k * 4 + 8) * A.n_rows,
+                                   n_steps * A.n_rows * 2 * k)
+        library_ms = None
+        if n_steps == 1:
+            lib_mat = csr_tensor(A_t)
+            wf = w.reshape(-1)
+            errs["library"] = compare(lib_mat @ wf, gx.reshape(-1),
+                                      "cuSPARSE A^T w yardstick")
+            library_ms = cuda_ms_cold(lambda: lib_mat @ wf, 20, flush)
+        ms = cuda_ms_cold(raw, 20, flush)
+        plain_ms = cuda_ms_cold(lambda: stencil_apply_plain(
+            planes_t, sp_.shifts_t, w, n_steps, "plain"), 5, flush)
+        st_out[f"n_steps_{n_steps}"] = dict(
+            launches=launches, results=errs, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, library_ms=library_ms,
+            **warm_and_device_ms(raw))
+        st_rows.append(dict(max_abs_err=errs["x_grad"]["max_abs_err"],
+                            launches=launches["x_cotangent"], ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms))
+    emit(dict(phase="stencil_grad", K=len(sp_.shifts), **st_out,
+              nvidia_smi=smi))
+    one = st_rows[0]  # the row is the one-step call; launches: both runs
+    rows_out.append(dict(
+        name="stencil[plain,T]", route="cuda", source=K4_ROW[0],
+        replaces=K4_ROW[1], launches=sum(r["launches"] for r in st_rows),
+        **{k: one[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}))
+    return rows_out
+
+
+def jax_bench_reference() -> dict:
+    """The JAX package's bench numbers on the same problems
+    (BENCH_r05.json, whose last line is kept as a text tail): the SA-PCG
+    iteration count and the convergence factors."""
+    with open(os.path.join(ROOT, "BENCH_r05.json")) as f:
+        tail = json.load(f)["tail"]
+    return {k: float(v) for k, v in re.findall(
+        r'"(convfac_\w+|pcg_iters_to_1e8)": ([0-9.]+)', tail)}
+
+
+def multigrid_phases(A, plain, fast, b, flush, smi) -> None:
+    """Phases 20-22: the SA hierarchy and mg_pcg at 1024^2, amg_pcg on the
+    fast setup, and the convergence-factor table."""
+    dev, n = A.device, A.n_rows
+    lib = _build.load()
+    ref = jax_bench_reference()
+    x0 = torch.zeros(n, device=dev)
+    bnorm = float(torch.linalg.vector_norm(b))
+
+    # --------------------------------------------------------- multigrid
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sa = setup_sa_multigrid(A, seed=0)
+    t_sa = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mg = setup_with_dia_multigrid(sa, kernel=True)
+    t_dia = time.perf_counter() - t0
+    hierarchy_bytes = torch.cuda.memory_allocated() - base
+    L = mg.n_levels
+    require(isinstance(mg.As[0], DiaKernelOperator), type(mg.As[0]))
+    on_k1 = {lvl: a for lvl, a in enumerate(mg.As)
+             if isinstance(a, DiaKernelOperator)}
+    cycles = PCG_ITERS + 1  # CG preconditions its first residual too
+
+    def want_launches(lvl):
+        """K1 launches of one mg_pcg at a K1 level: per cycle n_pre +
+        residual + n_post (1 + 1 + 1), the coarsest Chebyshev's degree 8,
+        and CG's own matvec on A_0."""
+        if lvl == L - 1:
+            return 8 * cycles
+        return (3 + (lvl == 0)) * cycles
+
+    for a in on_k1.values():
+        a.launches = 0
+    x, hist = mg_pcg(mg, b, x0, n_iters=PCG_ITERS, flip_sign=True)
+    torch.cuda.synchronize()
+    got = {lvl: a.launches for lvl, a in on_k1.items()}
+    want = {lvl: want_launches(lvl) for lvl in on_k1}
+    require(got == want, (got, want))
+    rel_hist = hist.cpu().numpy() / bnorm
+    conv = np.flatnonzero(rel_hist < 1e-8)
+    require(conv.size > 0, f"no 1e-8 in {PCG_ITERS} iterations: {rel_hist}")
+    iters = int(conv[0]) + 1
+    require(abs(iters - ref["pcg_iters_to_1e8"]) <= 1,
+            (iters, ref["pcg_iters_to_1e8"]))
+    require(bool(torch.isfinite(x).all()), "mg_pcg x must be finite")
+    true_rel = float(torch.linalg.vector_norm(b - A.matvec(x))) / bnorm
+    # the same hierarchy on plain DIA levels (K1's plain twin)
+    x_pl, _ = mg_pcg(setup_with_dia_multigrid(sa), b, x0,
+                     n_iters=PCG_ITERS, flip_sign=True)
+    rel = float((x - x_pl).abs().max() / x_pl.abs().max())
+    require(rel <= 1e-4, rel)
+    del x_pl
+    b_s = np.random.default_rng(5).standard_normal(64 * 64).astype(
+        np.float32)
+
+    def small(device):
+        A_s = laplacian_2d(64, device=device).eliminate_zeros()
+        m = setup_with_dia_multigrid(setup_sa_multigrid(A_s, seed=0),
+                                     kernel=True)
+        bb = torch.from_numpy(b_s).to(device)
+        return mg_pcg(m, bb, torch.zeros_like(bb), n_iters=10,
+                      flip_sign=True)[0].cpu()
+
+    x_s, x_h = small(dev), small("cpu")
+    rel_small = float((x_s - x_h).abs().max() / x_h.abs().max())
+    require(rel_small <= 2e-5, rel_small)
+
+    def solve_once():
+        return mg_pcg(mg, b, x0, n_iters=PCG_ITERS, flip_sign=True)
+
+    ms_iter = float(np.median([cuda_ms(solve_once, iters=1, warmup=1)
+                               for _ in range(5)])) / PCG_ITERS
+    busy = profile_cycles(lambda c: [solve_once() for _ in range(c)])
+    busy_iter = busy["device_busy_ms_per_cycle"] / PCG_ITERS
+    peak = torch.cuda.max_memory_allocated()
+    levels = []
+    for lvl, a0 in enumerate(sa.As):
+        entry = dict(level=lvl, rows=a0.n_rows, nnz=a0.nnz,
+                     on_k1=lvl in on_k1,
+                     P_nnz=sa.Ps[lvl].nnz if lvl < L - 1 else None)
+        if lvl in on_k1:
+            op = on_k1[lvl]
+            xin = torch.ones(op.n, device=dev)
+            raw, bytes_moved, flops = dia_raw(lib, op.diags, op.offsets_dev,
+                                              xin)
+            entry.update(K=len(op.offsets),
+                         diag_bytes=op.diags.numel() * 4,
+                         k1_launches=got[lvl],
+                         k1_ms=cuda_ms_cold(raw, 10, flush),
+                         bound_ms=bound(bytes_moved, flops)[0])
+        levels.append(entry)
+
+    # the classical hierarchy (pmis, signed interpolation, truncation)
+    t0 = time.perf_counter()
+    cl = setup_multigrid(A)
+    t_cl = time.perf_counter() - t0
+    cl = setup_with_dia_multigrid(cl, kernel=True)
+    xc = torch.zeros(n, device=dev)
+    res_cl = [bnorm]
+    for _ in range(3):
+        xc = multigrid_cycle(cl, b, xc)
+        res_cl.append(float(torch.linalg.vector_norm(b - A.matvec(xc))))
+    require(all(r1 < r0 for r0, r1 in zip(res_cl, res_cl[1:])), res_cl)
+    emit(dict(phase="multigrid", n=n, levels=levels, n_levels=L,
+              levels_on_k1=sorted(on_k1), sa_setup_s=t_sa,
+              dia_swap_s=t_dia, coarse_c=sa.coarse_c, coarse_d=sa.coarse_d,
+              pcg_iters=PCG_ITERS, rel_residual_history=rel_hist.tolist(),
+              iters_to_1e8=iters, jax_iters_to_1e8=ref["pcg_iters_to_1e8"],
+              true_rel_residual=true_rel, k1_launches=got,
+              rel_err_vs_plain_dia_levels=rel, rel_err_64sq_vs_cpu=rel_small,
+              ms_per_iter=ms_iter, ms_to_1e8=ms_iter * iters,
+              device_busy_ms_per_iter=busy_iter,
+              idle_share=1.0 - busy_iter / ms_iter,
+              top_kernels_per_solve=busy["top_kernels_per_cycle"][:8],
+              hierarchy_bytes=hierarchy_bytes, peak_mem_bytes=peak,
+              peak_mem_bytes_above_earlier_phases=peak - base,
+              classical=dict(setup_s=t_cl, n_levels=cl.n_levels,
+                             rows=[a.n_rows for a in cl.As],
+                             on_k1=[isinstance(a, DiaKernelOperator)
+                                    for a in cl.As],
+                             residual_norms=res_cl),
+              nvidia_smi=smi))
+
+    # --------------------------------------------------------------- pcg
+    counted = dict(A=fast.A, Ac=fast.Ac, P=fast.P.fwd, Pt=fast.P.bwd)
+    for op in counted.values():
+        op.launches = 0
+    x, hist = amg_pcg(fast, b, x0, n_iters=10, flip_sign=True)
+    torch.cuda.synchronize()
+    launches = {k: op.launches for k, op in counted.items()}
+    c = 10 + 1
+    # per cycle: A 1 + 1 + 1 (n_smooth 1), Ac the Chebyshev's degree 4,
+    # P and P^T once; CG's matvec adds one A per iteration
+    want_pcg = dict(A=4 * c, Ac=4 * c, P=c, Pt=c)
+    require(launches == want_pcg, (launches, want_pcg))
+    _, hist_cg = cg(lambda v: -fast.A.matvec(v), -b, x0, n_iters=10)
+    h, h_cg = hist.cpu().numpy() / bnorm, hist_cg.cpu().numpy() / bnorm
+    require(h[-1] < h_cg[-1], (h.tolist(), h_cg.tolist()))
+    x_pl, _ = amg_pcg(plain, b, x0, n_iters=10, flip_sign=True)
+    rel_pcg = float((x - x_pl).abs().max() / x_pl.abs().max())
+    require(rel_pcg <= 1e-4, rel_pcg)
+    ms_pcg = float(np.median([cuda_ms(lambda: amg_pcg(
+        fast, b, x0, n_iters=10, flip_sign=True), iters=1, warmup=1)
+        for _ in range(5)])) / 10
+    emit(dict(phase="pcg", rel_residual_history=h.tolist(),
+              cg_rel_residual_history=h_cg.tolist(), launches=launches,
+              rel_err_vs_plain_setup=rel_pcg, ms_per_iter=ms_pcg,
+              nvidia_smi=smi))
+
+    # ------------------------------------------------------- convergence
+    table = {}
+    for size in CONV_SIZES:
+        op = laplacian_2d(size, device=dev).eliminate_zeros()
+        bb = torch.ones(op.n_rows, device=dev)
+        r0 = float(torch.linalg.vector_norm(bb))
+        tg = setup_with_stream_p(setup_with_dia(
+            setup_twogrid(op, splitting="cljp", seed=0), kernel=True))
+        xk = solve(tg, bb, torch.zeros_like(bb), n_cycles=8)
+        cf_cl = (float(torch.linalg.vector_norm(bb - op.matvec(xk)))
+                 / r0) ** (1 / 8)
+        sa_s = setup_with_dia_multigrid(setup_sa_multigrid(op, seed=0),
+                                        kernel=True)
+        xs = torch.zeros_like(bb)
+        for _ in range(8):
+            xs = multigrid_cycle(sa_s, bb, xs, n_pre=2, n_post=2)
+        cf_sa = (float(torch.linalg.vector_norm(bb - op.matvec(xs)))
+                 / r0) ** (1 / 8)
+        jax_cl = ref[f"convfac_classical_{size}"]
+        jax_sa = ref[f"convfac_sa_{size}"]
+        require(cf_sa < cf_cl, (size, cf_sa, cf_cl))
+        require(abs(cf_cl - jax_cl) <= 0.01 and abs(cf_sa - jax_sa) <= 0.01,
+                (size, cf_cl, jax_cl, cf_sa, jax_sa))
+        table[size] = dict(classical=cf_cl, sa=cf_sa, jax_classical=jax_cl,
+                           jax_sa=jax_sa, sa_levels=sa_s.n_levels,
+                           sa_levels_on_k1=[isinstance(a, DiaKernelOperator)
+                                            for a in sa_s.As])
+    emit(dict(phase="convergence", cycles=8, table=table))
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
@@ -1006,22 +1442,13 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
 
     flush = torch.ones(64 * 2 ** 20, device=dev)  # 256 MB > the 50 MB L2
-    stream = torch.cuda.current_stream().cuda_stream
     kernels, warm = [], {}
     for key, (kern, ref, xin) in shapes.items():
         if key in ("A", "Ac"):
             op = getattr(fast, key)
-            k, m = op.diags.shape
-            y = torch.empty(m, device=dev)
-
-            def raw(op=op, k=k, m=m, xin=xin, y=y):
-                lib.dia_spmv_f32(op.diags.data_ptr(),
-                                 op.offsets_dev.data_ptr(), k, m,
-                                 xin.data_ptr(), y.data_ptr(), stream)
-            bytes_moved = (k * m + 2 * m) * 4 + 4 * k
-            flops = 2 * k * m
-            kname, src, rep = ("dia_spmv", "gnnla_tpu_torch/csrc/dia_spmv.cu",
-                               "gnnla_tpu/ops/pallas_spmv.py:41")
+            raw, bytes_moved, flops = dia_raw(lib, op.diags, op.offsets_dev,
+                                              xin)
+            kname, (src, rep) = "dia_spmv", K1_ROW
             lib_mat = csr_tensor(getattr(plain, key))
         else:
             raw, bytes_moved, flops = csr_raw(lib, kern, xin)
@@ -1058,6 +1485,8 @@ def main() -> int:
     k2_rows, A_p = stream_path(A, flush, smi)
     kernels += k2_rows
     kernels += stream_training(A_p, flush, smi)
+    kernels += kernel_grads(A, plain, fast, flush, smi)
+    multigrid_phases(A, plain, fast, b, flush, smi)
     jacobi_weights(dev)
     train_phase(dev, smi)
     emit({"kernels": kernels})

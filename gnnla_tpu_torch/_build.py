@@ -107,8 +107,9 @@ def load(force: bool = False) -> ctypes.CDLL:
         built = False
     lib = ctypes.CDLL(lib_path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.dia_spmv_f32.restype = ci
-    lib.dia_spmv_f32.argtypes = [vp, vp, ci, ci, vp, vp, vp]
+    for fn in (lib.dia_spmv_f32, lib.dia_spmv_bf16):
+        fn.restype = ci
+        fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]
     lib.csr_spmv_f32.restype = ci
     lib.csr_spmv_f32.argtypes = [vp, vp, vp, ci, vp, vp, vp]
     lib.csr_spmm_f32.restype = ci

@@ -3,8 +3,8 @@
 The port's own binding to the same `native/libgnnla_native.so` that
 gnnla_tpu.native_ext loads (importing that module would run
 gnnla_tpu/__init__.py and therefore jax). Only the entry points the
-ported slices use are bound: CLJP splitting, and RCM ordering with the
-symmetric CSR permutation. When the library (or a symbol) is missing the
+ported slices use are bound: CLJP splitting, RCM ordering with the
+symmetric CSR permutation, and Vanek aggregation. When the library (or a symbol) is missing the
 callers run numpy/scipy instead — the same fallbacks the JAX package
 takes, so both packages produce identical coarse flags and orders.
 """
@@ -33,6 +33,9 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.cljp_split.restype = None
     lib.cljp_split.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.c_uint64,
                                i64p]
+    if hasattr(lib, "vanek_aggregate"):
+        lib.vanek_aggregate.restype = ctypes.c_int64
+        lib.vanek_aggregate.argtypes = [ctypes.c_int64, i64p, i64p, i64p]
     if hasattr(lib, "rcm_order"):
         f32p = ctypes.POINTER(ctypes.c_float)
         lib.rcm_order.restype = None
@@ -109,3 +112,21 @@ def csr_permute_sym(A_csr, perm):
                        out_indptr.astype(idt)), shape=A_csr.shape)
     B.has_sorted_indices = True
     return B
+
+
+def vanek_aggregate(G_csr) -> Optional[np.ndarray]:
+    """Sequential Vanek aggregation over a symmetrized strength graph
+    (native/graphbuild.cpp::vanek_aggregate); None when the library or
+    the symbol is missing (callers then run the numpy scan in
+    amg/aggregation.py, which gives the same aggregates)."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "vanek_aggregate"):
+        return None
+    import scipy.sparse as sp
+    G = sp.csr_matrix(G_csr)
+    indptr = np.ascontiguousarray(G.indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(G.indices, dtype=np.int64)
+    agg = np.full(G.shape[0], -1, dtype=np.int64)
+    lib.vanek_aggregate(G.shape[0], _i64p(indptr), _i64p(indices),
+                        _i64p(agg))
+    return agg

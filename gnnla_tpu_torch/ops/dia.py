@@ -5,8 +5,9 @@ gnnla_tpu/ops/dia.py.
 
 `dia_matvec` (the shifted-slice loop behind `DIAOperator.matvec`) is the
 plain PyTorch version of kernel K1, the hand-written CUDA DIA SpMV in
-`ops/dia_spmv.py`. Conversion from `SparseOperator` is a host-side setup
-op, as in the JAX package.
+`ops/dia_spmv.py`; `dia_transpose` gives A^T's diagonals, on which K1's
+backward runs. Conversion from `SparseOperator` is a host-side setup op,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -74,6 +75,26 @@ class DIAOperator:
 
     def diagonal(self) -> torch.Tensor:
         return self.diags[self.offsets.index(0)]
+
+
+def dia_transpose(dia: DIAOperator) -> DIAOperator:
+    """A^T in DIA form: AT_diag[offset m][i] = A_diag[offset -m][i + m].
+
+    Pure shifts of the stored diagonals (exact in any dtype): the x
+    cotangent of y = A x is A^T ybar, itself a DIA SpMV (kernel K1)."""
+    new_offsets = tuple(-o for o in reversed(dia.offsets))
+    rows = []
+    for m in new_offsets:
+        src = dia.diags[dia.offsets.index(-m)]
+        pad = src.new_zeros(min(abs(m), dia.n))
+        if m == 0:
+            rows.append(src)
+        elif m > 0:
+            rows.append(torch.cat([src[m:], pad]))
+        else:
+            rows.append(torch.cat([pad, src[:m]]))
+    return DIAOperator(diags=torch.stack(rows), offsets=new_offsets,
+                       n=dia.n, nnz=dia.nnz)
 
 
 def to_dia(op: SparseOperator,

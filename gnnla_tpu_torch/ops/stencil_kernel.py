@@ -13,9 +13,14 @@ of gnnla_tpu/ops/pallas_stencil.py.
     the `make_stencil_*` constructors — the four users of the kernel
     (`PallasStencil*` in the JAX package), with the same taps.
 
-The gradient of `PallasStencilSpMV` (its custom VJP) is not ported yet;
-until it is, every K4 call refuses inputs that require grad, on the CPU as
-on the card.
+`StencilSpMV` is differentiable in x and in its taps with the VJP of
+`PallasStencilSpMV` (`pallas_stencil.py:336-356`): x's cotangent is K4 in
+plain mode on the transposed taps (`stencil_transpose`, rebuilt from the
+saved taps in backward), the taps' cotangent autograd through the plain
+roll twin `stencil_matvec` repeated n_steps times (JAX's `f_jnp`). The
+JAX package defines no gradient for the other users (Jacobi, power,
+residual), so with grad mode on their K4 calls refuse inputs that require
+grad, on the CPU as on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 
 from gnnla_tpu_torch import _build
 from gnnla_tpu_torch.ops.stencil import (MAX_TAPS, MODES, check_mode,
-                                         stencil_apply_plain, stencil_taps)
+                                         stencil_apply_plain, stencil_matvec,
+                                         stencil_taps, stencil_transpose)
 
 _THREADS = 256  # the step kernel's block size (kThreads in csrc/stencil.cu)
 _MODE_ID = {"plain": 0, "affine": 1, "normalize": 2}
@@ -121,8 +127,9 @@ class StencilCall:
     version. x2d (and c) must lie on the taps' H x W grid. `launches`
     counts kernel launches; it never moves on the CPU path.
 
-    Not differentiable yet on either path: an input that requires grad
-    raises NotImplementedError (the VJP is not ported yet)."""
+    Not differentiable: with grad mode on, an input that requires grad
+    raises NotImplementedError on either path. `StencilSpMV` carries the
+    one gradient the JAX package defines."""
 
     def __init__(self, shifts: Sequence[Tuple[int, int]],
                  taps: torch.Tensor, n_steps: int, mode: str):
@@ -156,10 +163,13 @@ class StencilCall:
 
     def __call__(self, x2d: torch.Tensor,
                  c: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if any(t is not None and t.requires_grad for t in (self.taps, x2d, c)):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (self.taps, x2d, c)):
             raise NotImplementedError(
-                "the gradient of the stencil kernel (the JAX package's "
-                "custom VJP) is not ported yet")
+                f"the stencil kernel in {self.mode} mode has no gradient: "
+                "the JAX package defines no VJP for its Jacobi, power and "
+                "residual users (only PallasStencilSpMV has one; see "
+                "StencilSpMV)")
         _require(tuple(x2d.shape) == self.grid_shape,
                  f"x {tuple(x2d.shape)} is not on the call's "
                  f"{self.grid_shape[0]}x{self.grid_shape[1]} grid")
@@ -179,6 +189,36 @@ def taps_tensor(planes: np.ndarray, grid_shape, tap_dtype,
     return torch.from_numpy(planes).to(tap_dtype).reshape(-1, h, w).to(device)
 
 
+class _StencilSpMVGrad(torch.autograd.Function):
+    """y = T^n x on K4 with the VJP of `PallasStencilSpMV.apply`: x's
+    cotangent (T^T)^n ybar on K4 with the transposed taps, rebuilt from
+    the saved taps; the taps' cotangent through the plain roll twin."""
+
+    @staticmethod
+    def forward(ctx, taps, x2d, spmv):
+        ctx.spmv = spmv
+        ctx.save_for_backward(taps, x2d)
+        return spmv._call(x2d)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        spmv = ctx.spmv
+        taps, x2d = ctx.saved_tensors
+        ybar = ybar.contiguous()
+        tbar = xbar = None
+        if ctx.needs_input_grad[1]:
+            _, planes_t = stencil_transpose(spmv.shifts, taps.float())
+            xbar = spmv.launch_t(planes_t.to(taps.dtype), ybar)
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                t = taps.detach().requires_grad_(True)
+                tf, y = t.float(), x2d.detach()
+                for _ in range(spmv.n_steps):
+                    y = stencil_matvec(tf, spmv.shifts, y)
+                tbar, = torch.autograd.grad(y, t, ybar)
+        return tbar, xbar, None
+
+
 class StencilSpMV:
     """Fused y = A^{n_steps} x for grid-stencil operators
     (`PallasStencilSpMV`).
@@ -186,8 +226,10 @@ class StencilSpMV:
     apply(x2d) -> y2d    [H, W] f32 in and out
     matvec_n(x)          on flat [n] vectors
 
-    Not differentiable yet: an input that requires grad raises
-    NotImplementedError (the VJP is not ported yet)."""
+    Differentiable in x and in `taps` (the JAX package's custom VJP).
+    `launches_t` counts the K4 launches of x's cotangent (n_steps per
+    backward, on the transposed taps); the forward's are `_call.launches`.
+    Neither moves on the CPU path."""
 
     def __init__(self, op, grid_shape: Tuple[int, int], n_steps: int = 1,
                  tap_dtype=None):
@@ -202,9 +244,31 @@ class StencilSpMV:
         self.n_steps = n_steps
         self.taps = taps_tensor(planes, grid_shape, tap_dtype, op.device)
         self._call = StencilCall(shifts, self.taps, n_steps, "plain")
+        h, w = self.grid_shape
+        self.shifts_t = [((-dy) % h, (-dx) % w) for dy, dx in shifts]
+        self._shifts_t_dev = torch.tensor(
+            [dy for dy, _ in self.shifts_t] + [dx for _, dx in self.shifts_t],
+            dtype=torch.int32, device=op.device)
+        self.launches_t = 0
 
     def apply(self, x2d: torch.Tensor) -> torch.Tensor:
-        return self._call(x2d.float())
+        x2d = x2d.float()
+        if torch.is_grad_enabled() and (x2d.requires_grad
+                                        or self.taps.requires_grad):
+            return _StencilSpMVGrad.apply(self.taps, x2d, self)
+        return self._call(x2d)
+
+    def launch_t(self, taps_t: torch.Tensor,
+                 y2d: torch.Tensor) -> torch.Tensor:
+        """(A^T)^{n_steps} y for A^T's taps: K4 in plain mode on a CUDA
+        tensor (counted in `launches_t`), the plain version on a CPU one."""
+        if y2d.device.type == "cpu":
+            return stencil_apply_plain(taps_t, self.shifts_t, y2d,
+                                       self.n_steps, "plain")
+        out = stencil_cuda(taps_t, self._shifts_t_dev, y2d, self.n_steps,
+                           "plain")
+        self.launches_t += stencil_launches("plain", self.n_steps)
+        return out
 
     def matvec_n(self, x: torch.Tensor) -> torch.Tensor:
         """y = A^{n_steps} x on flat [n] vectors."""

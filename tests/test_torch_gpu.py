@@ -1,5 +1,6 @@
 """Kernels K1, K2, K3 and K4 against their plain PyTorch versions on the
-card, and the gradients of K2 and K3 there.
+card, their gradients there, K1's bf16 diagonal storage, and the
+multilevel and Krylov solvers on the kernels.
 
 Marked `gpu`: run on a machine with an NVIDIA card (and nvcc) with
 
@@ -265,7 +266,7 @@ def test_stencil_call_refuses_grad_on_the_card(cuda):
     x = torch.zeros(256, device=cuda)
     for user in (make_stencil_residual(A, (16, 16)).residual,
                  make_stencil_jacobi(A, (16, 16)).smooth):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(NotImplementedError, match="defines no VJP"):
             user(b, x)
 
 
@@ -415,11 +416,156 @@ def test_stream_operator_keeps_the_gradient_on_the_card(cuda):
 
 
 def test_dia_kernel_refuses_grad_on_the_card(cuda):
+    """K1's backward (once refused here): on the card the gradients in x
+    and in the diagonals equal the plain DIA matvec's autograd; one
+    launch forward, one backward on the transposed diagonals."""
+    from gnnla_tpu_torch.ops.dia import dia_matvec
+
     _, fast = _fast(24, cuda)
-    x = torch.ones(fast.A.n, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        fast.A.matvec(x)
-    assert fast.A.launches == 0
+    for op in (fast.A, fast.Ac):
+        rng = np.random.default_rng(8)
+        x0, w = (torch.from_numpy(rng.standard_normal(op.n).astype(
+            np.float32)).to(cuda) for _ in range(2))
+        op.launches = 0
+        op.diags.requires_grad_(True)
+        x = x0.clone().requires_grad_(True)
+        torch.dot(w, op.matvec(x)).backward()
+        assert op.launches == 2
+        d2 = op.diags.detach().clone().requires_grad_(True)
+        x2 = x0.clone().requires_grad_(True)
+        torch.dot(w, dia_matvec(d2, op.offsets, x2)).backward()
+        _close(x.grad, x2.grad)
+        _close(op.diags.grad, d2.grad)
+        op.diags.requires_grad_(False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dia_kernel_grads_match_the_cpu(cuda, dtype):
+    """K1's Function on the card gives the CPU path's forward and both
+    cotangents, f32 and bf16 diagonals, on the 30^2 fast setup's Ac."""
+    from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
+
+    out = {}
+    for dev in ("cpu", cuda):
+        _, fast = _fast(30, dev)
+        op = dia_kernel_operator(fast.Ac.plain(), diag_dtype=dtype)
+        rng = np.random.default_rng(9)
+        x = torch.from_numpy(rng.standard_normal(op.n).astype(
+            np.float32)).to(dev).requires_grad_(True)
+        w = torch.from_numpy(rng.standard_normal(op.n).astype(
+            np.float32)).to(dev)
+        op.diags.requires_grad_(True)
+        y = op.matvec(x)
+        torch.dot(w, y).backward()
+        out[str(dev)] = (y.detach().cpu(), x.grad.cpu(),
+                         op.diags.grad.float().cpu(), op.launches)
+    (yc, xc, dc, _), (yg, xg, dg, n) = out["cpu"], out[str(cuda)]
+    for got, want in ((yg, yc), (xg, xc), (dg, dc)):
+        scale = float(want.abs().max())
+        assert bool(((got - want).abs() <= RTOL * want.abs()
+                     + RTOL * scale).all())
+    assert n == 2
+
+
+def test_dia_bf16_kernel_matches_plain(cuda):
+    """bf16 diagonals: on the integer Laplacian the f32 kernel's bits, on
+    Ac the plain bf16-stored version within f32 rounding."""
+    from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
+
+    _, fast = _fast(40, cuda)
+    for op in (fast.A, fast.Ac):
+        op16 = dia_kernel_operator(op.plain(), diag_dtype=torch.bfloat16)
+        x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+            op.n).astype(np.float32)).to(cuda)
+        y16 = op16.matvec(x)
+        _close(y16, op16.plain().matvec(x))
+        if op is fast.A:
+            assert torch.equal(y16, op.matvec(x))
+        assert op16.launches == 1 and op16.diags.dtype == torch.bfloat16
+
+
+def test_dia_wrapper_refuses_other_diagonal_types(cuda):
+    from gnnla_tpu_torch.ops.dia_spmv import dia_spmv_cuda
+
+    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+    x = torch.ones(8, device=cuda)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="bfloat16"):
+            dia_spmv_cuda(torch.ones(1, 8, device=cuda, dtype=dt), offs, x)
+    y = dia_spmv_cuda(torch.full((1, 8), 2.0, device=cuda,
+                                 dtype=torch.bfloat16), offs, x)
+    assert torch.equal(y, torch.full((8,), 2.0, device=cuda))
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_stencil_spmv_grads_on_the_card(cuda, n_steps):
+    """StencilSpMV's Function on the card: x and taps cotangents as on
+    the CPU; x's cotangent is exactly n_steps K4 launches."""
+    from gnnla_tpu_torch.ops.stencil_kernel import make_stencil_spmv
+
+    out = {}
+    for dev in ("cpu", cuda):
+        A = _grid_op("nonsym", 32, dev)
+        s = make_stencil_spmv(A, (32, 32), n_steps)
+        rng = np.random.default_rng(11)
+        x = torch.from_numpy(rng.standard_normal((32, 32)).astype(
+            np.float32)).to(dev).requires_grad_(True)
+        w = torch.from_numpy(rng.standard_normal((32, 32)).astype(
+            np.float32)).to(dev)
+        s.taps.requires_grad_(True)
+        torch.sum(w * s.apply(x)).backward()
+        out[str(dev)] = (x.grad.cpu(), s.taps.grad.cpu(), s._call.launches,
+                         s.launches_t)
+    (xc, tc, _, _), (xg, tg, lf, lt) = out["cpu"], out[str(cuda)]
+    for got, want in ((xg, xc), (tg, tc)):
+        scale = float(want.abs().max())
+        assert bool(((got - want).abs() <= RTOL * want.abs()
+                     + RTOL * scale).all())
+    assert (lf, lt) == (n_steps, n_steps)
+
+
+def test_mg_pcg_on_the_card(cuda):
+    """SA mg_pcg on K1 levels at 64^2: the CPU path's x within 2e-5 and
+    exact K1 launches per level (3 per cycle, 8 at the coarsest, CG's
+    matvec on A_0; one cycle more than iterations)."""
+    from gnnla_tpu_torch.models import (mg_pcg, setup_sa_multigrid,
+                                        setup_with_dia_multigrid)
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+
+    b = np.random.default_rng(5).standard_normal(4096).astype(np.float32)
+    xs = {}
+    for dev in ("cpu", cuda):
+        A = _grid_op("lap", 64, dev)
+        mg = setup_with_dia_multigrid(setup_sa_multigrid(A, seed=0),
+                                      kernel=True)
+        bb = torch.from_numpy(b).to(dev)
+        x, hist = mg_pcg(mg, bb, torch.zeros_like(bb), n_iters=10,
+                         flip_sign=True)
+        xs[str(dev)] = x.cpu()
+    torch.cuda.synchronize()
+    assert all(isinstance(a, DiaKernelOperator) for a in mg.As)
+    last = mg.n_levels - 1
+    assert [a.launches for a in mg.As] == [
+        11 * (8 if i == last else 3 + (i == 0)) for i in range(last + 1)]
+    xc = xs["cpu"]
+    assert float((xs[str(cuda)] - xc).abs().max() / xc.abs().max()) < 2e-5
+    assert float(hist[-1]) < 1e-5 * float(np.linalg.norm(b))
+
+
+def test_amg_pcg_on_the_card(cuda):
+    from gnnla_tpu_torch.models import amg_pcg
+
+    plain, fast = _fast(64, cuda)
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        4096).astype(np.float32)).to(cuda)
+    x, _ = amg_pcg(fast, b, torch.zeros_like(b), n_iters=6, flip_sign=True)
+    want, _ = amg_pcg(plain, b, torch.zeros_like(b), n_iters=6,
+                      flip_sign=True)
+    torch.cuda.synchronize()
+    assert float((x - want).abs().max() / want.abs().max()) < 1e-4
+    assert (fast.A.launches, fast.Ac.launches) == (28, 28)
+    assert (fast.P.fwd.launches, fast.P.bwd.launches) == (7, 7)
 
 
 def test_csr_spmm_wrapper_refuses_bad_operands(cuda):

@@ -42,7 +42,11 @@ def test_port_files_found():
                  "gnnla_tpu_torch/core/block.py",
                  "gnnla_tpu_torch/models/trainable_jacobi.py",
                  "gnnla_tpu_torch/training/train_jacobi.py",
-                 "gnnla_tpu_torch/training/spectral_loss.py"):
+                 "gnnla_tpu_torch/training/spectral_loss.py",
+                 "gnnla_tpu_torch/amg/aggregation.py",
+                 "gnnla_tpu_torch/models/multigrid.py",
+                 "gnnla_tpu_torch/models/krylov.py",
+                 "gnnla_tpu_torch/problems/fem_heateqn.py"):
         assert must in files
 
 
@@ -58,7 +62,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, gnnla_tpu_torch.models, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
             "gnnla_tpu_torch.ops.stencil_kernel, gnnla_tpu_torch.native_ext, "
-            "gnnla_tpu_torch.training, "
+            "gnnla_tpu_torch.training, gnnla_tpu_torch.amg.aggregation, "
+            "gnnla_tpu_torch.models.multigrid, gnnla_tpu_torch.models.krylov, "
+            "gnnla_tpu_torch.problems.fem_heateqn, "
             "gnnla_tpu_torch.training.checkpoints; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")

@@ -28,7 +28,7 @@ from gnnla_tpu.ops.pallas_stream import (StreamSpMM, StreamSpMV,
                                          mrhs_split_out)
 from gnnla_tpu.ops.pallas_stream import rcm_csr as j_rcm_csr
 from gnnla_tpu.training import spectral_loss as j_sl
-from gnnla_tpu_torch.ops.dia import to_dia
+from gnnla_tpu_torch.ops.dia import dia_matvec, to_dia
 from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
 from gnnla_tpu_torch.ops.sparse import SparseOperator as TSparse
 from gnnla_tpu_torch.ops.stream_op import csr_pair, stream_operator
@@ -345,17 +345,22 @@ def test_gelfand_spmm_matches_jax_and_the_coo_path():
 
 # ------------------------------------------------------------------ K1
 def test_dia_kernel_refuses_inputs_that_require_grad():
-    """K1's backward is not ported: on the CPU as on the card, its matvec
-    refuses an x or diagonals that require grad rather than cut the
-    gradient on one path only."""
+    """K1's backward (once refused here): on the CPU its matvec carries
+    the gradients in x and in the diagonals that the plain DIA matvec's
+    autograd gives, through the same Function the card runs, with no
+    kernel launch."""
     A = laplacian_2d(12, device=CPU).eliminate_zeros()
     K1 = dia_kernel_operator(to_dia(A))
+    w = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        A.n_rows).astype(np.float32))
     x = torch.ones(A.n_rows, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        K1.matvec(x)
     K1.diags.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        K1.matvec(x.detach())
+    torch.dot(w, K1.matvec(x)).backward()
+    d_ref = K1.diags.detach().clone().requires_grad_(True)
+    x_ref = torch.ones(A.n_rows, requires_grad=True)
+    torch.dot(w, dia_matvec(d_ref, K1.offsets, x_ref)).backward()
+    assert_close(x.grad, x_ref.grad, rtol=1e-6, atol_scale=1e-6)
+    assert_close(K1.diags.grad, d_ref.grad, rtol=1e-6, atol_scale=1e-6)
     K1.diags.requires_grad_(False)
     assert_close(K1.matvec(x.detach()), A.matvec(x.detach()), rtol=1e-6,
                  atol_scale=1e-6)

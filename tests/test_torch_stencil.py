@@ -261,28 +261,39 @@ def test_plain_version_refuses_bad_modes():
 
 
 def test_spmv_refuses_inputs_that_require_grad():
-    A_j, gs = grid_operator("lap20")
-    s = tk.make_stencil_spmv(carry(A_j), gs)
-    x = torch.zeros(gs, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        s.apply(x)
+    """StencilSpMV's backward (once refused here): the gradients in x and
+    in the taps equal the plain roll twin's autograd, through the same
+    Function the card runs, with no kernel launch on the CPU."""
+    A_j, gs = grid_operator("nonsym20")
+    s = tk.make_stencil_spmv(carry(A_j), gs, n_steps=2)
+    w = torch.from_numpy(vec(A_j.n_rows, 11)).reshape(gs)
+    x = torch.from_numpy(vec(A_j.n_rows, 12)).reshape(gs).requires_grad_(
+        True)
     s.taps.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        s.apply(x.detach())
+    torch.sum(w * s.apply(x)).backward()
+    t_ref = s.taps.detach().clone().requires_grad_(True)
+    x_ref = x.detach().clone().requires_grad_(True)
+    y_ref = ts.stencil_matvec(t_ref, s.shifts,
+                              ts.stencil_matvec(t_ref, s.shifts, x_ref))
+    torch.sum(w * y_ref).backward()
+    assert_close(x.grad, x_ref.grad)
+    assert_close(s.taps.grad, t_ref.grad)
+    assert s._call.launches == s.launches_t == 0
     with pytest.raises(ValueError, match="n_steps"):
         tk.make_stencil_spmv(carry(A_j), gs, n_steps=0)
 
 
 @pytest.mark.parametrize("user", ["jacobi", "power", "residual"])
 def test_users_refuse_inputs_that_require_grad(user):
-    """Every K4 call refuses, on the CPU as on the card, until K4's VJP
-    is ported: no path returns a result whose gradient the other path
-    would cut."""
+    """The JAX package defines no gradient for the Jacobi, power and
+    residual users (only PallasStencilSpMV has a VJP), so their K4 calls
+    refuse inputs that require grad, on the CPU as on the card: no path
+    returns a result whose gradient the other path would cut."""
     A_j, gs = grid_operator("nonsym20")
     A_t = carry(A_j)
     b = torch.ones(A_j.n_rows, requires_grad=True)
     x = torch.zeros(A_j.n_rows)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match="defines no VJP"):
         if user == "jacobi":
             tk.make_stencil_jacobi(A_t, gs).smooth(b, x)
         elif user == "power":
