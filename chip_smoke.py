@@ -10,20 +10,25 @@ Phases, one JSON line each on stdout:
                memory and spill lines.
   3. setup   — the 1024^2 FD Laplacian, `setup_twogrid(theta=0.25, cljp,
                seed=0)`, `setup_with_dia(kernel=True)`, `setup_with_stream_p`;
-               asserts A and Ac are on kernel K1 and P on kernel K2.
+               asserts A and Ac are on kernel K1 and P on kernel K2, and
+               that Ac's compact K1 layout holds at most 378,269 segments
+               (32-row tile, diagonal) in under 80 MB.
   4. kernels — each kernel's wrapper against its plain PyTorch version on
                the card, at the main path's shapes (rtol 1e-5, atol
                1e-5 * max|y|: the two sum in different orders in f32).
   5. solve   — 5 cycles of `solve`; the residual must fall every cycle;
                the launch counts must be exactly 11 K1 and 2 K2 launches
-               per cycle; x must match the plain path on the card (max
-               error <= 1e-4 relative to max|x|); a 64^2 run must match
-               the port's CPU path.
+               per cycle, and no K1 layout rebuilt; x must match the plain
+               path on the card (max error <= 1e-4 relative to max|x|); a
+               64^2 run must match the port's CPU path.
   6. times   — ms/cycle (CUDA events over 20 warm cycles); per kernel and
                shape the kernel, plain version and cuSPARSE (`library_ms`)
                times with the L2 cache flushed before each call, beside
-               the memory-rate bound; the wrapper's and the raw launch's
-               back-to-back, L2-warm times; peak device memory; a
+               the memory-rate bound (K1: of its compact layout, beside
+               the bound of a walk over all K diagonals and the nonzeros'
+               floor);
+               whether K1 on Ac beats cuSPARSE; the wrapper's and the raw
+               launch's back-to-back, L2-warm times; peak device memory; a
                profiler breakdown of one cycle's device time and idle
                share.
 The grid path (kernel K4, the fused stencil) on the same 1024^2 operator:
@@ -69,9 +74,12 @@ The stream leg of `AutoTwoGrid` (kernel K2 on a square RCM-ordered A):
 Training the learned Jacobi smoother (kernel K3, the multi-RHS SpMM):
  13. spmm         — K3 on the stream phase's RCM-ordered CSR and on its
                     transpose at M = 20 (the trainer's probe count)
-                    against the plain version (rtol 1e-5); flushed, warm
-                    and profiler device times; the bytes bound; on each,
-                    one `torch.sparse.mm` (cuSPARSE) checked against it.
+                    against the plain version (rtol 1e-5) and bitwise
+                    against a CSR-order sequential sum in PyTorch; the
+                    scalar variant at M = 7 and on a misaligned X, the
+                    same checks; flushed, warm and profiler device times;
+                    the bytes bound; on each, one `torch.sparse.mm`
+                    (cuSPARSE) checked against it.
  14. train_stream — that operator negated: the Gelfand loss on K3 against
                     the plain COO path (loss rtol 1e-4, gradient in the
                     diagonal rtol 1e-3 + 1e-5 max|g|), exactly 3 K3
@@ -116,12 +124,15 @@ The multilevel hierarchies and the Krylov solvers:
                     1e-4 of max|x| of the same hierarchy on plain DIA
                     levels, a 64^2 run within 2e-5 of the port's CPU path;
                     ms per iteration (median of 5 runs), idle share, peak
-                    memory; the classical `setup_multigrid` (pmis) cycles
-                    lower the residual.
+                    memory, no K1 layout rebuilt; per K1 level the kernel
+                    against its plain version, its flushed, plain and
+                    cuSPARSE times (a `dia_spmv[SA<level>]` row each); the
+                    classical `setup_multigrid` (pmis) cycles lower the
+                    residual.
  21. pcg          — `amg_pcg(n_iters=10, flip_sign=True)` on the fast
                     setup: below plain `cg` at 10 iterations, exact K1/K2
                     launches, x within 1e-4 of the plain setup's; ms per
-                    iteration.
+                    iteration, idle share.
  22. convergence  — per-cycle convergence factors at 64^2, 128^2, 256^2 of
                     the classical two-grid cycle (fast setup, 8 cycles) and
                     the SA V-cycle (K1 levels, n_pre = n_post = 2, 8
@@ -160,7 +171,7 @@ from gnnla_tpu_torch.models.trainable_jacobi import (TrainableJacobiMLP,
 from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid, setup_twogrid,
                                            setup_with_dia,
                                            setup_with_stream_p, solve)
-from gnnla_tpu_torch.ops.dia import DIAOperator, dia_matvec
+from gnnla_tpu_torch.ops.dia import DIAOperator, dia_matvec, dia_transpose
 from gnnla_tpu_torch.ops.dia_spmv import (DiaKernelOperator,
                                           dia_kernel_operator)
 from gnnla_tpu_torch.ops.sparse import SparseOperator
@@ -210,6 +221,10 @@ PCG_ITERS = 30
 CONV_SIZES = (64, 128, 256)
 OMEGA = 2.0 / 3.0
 M_PROBES = 20  # the trainer's m_probes: K3's width on the training path
+# the fast Ac's nonzero (32-row tile, diagonal) pairs, counted on the host
+# setup of phase 3, and a cap on the bytes its compact layout may store
+AC_SEGMENTS_MAX = 378_269
+AC_STORED_BYTES_MAX = 80e6
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(ROOT, "artifacts", "jacobi")
 
@@ -302,20 +317,51 @@ def csr_raw(lib, csr, x: torch.Tensor):
     return raw, csr.nnz * 8 + (r_ + 1) * 4 + c_ * 4 + r_ * 4, 2 * csr.nnz
 
 
-def dia_raw(lib, diags: torch.Tensor, offsets_dev: torch.Tensor,
-            x: torch.Tensor):
-    """(raw launch of K1 on diags [K, n] (f32 or bf16) and x, bytes,
-    flops): the diagonals, offsets and x read once, y written once."""
-    k, m = diags.shape
-    y = torch.empty(m, device=x.device)
-    fn = (lib.dia_spmv_f32 if diags.dtype == torch.float32
+def dia_raw(lib, tiles, x: torch.Tensor):
+    """(raw launch of K1 on the compact layout `tiles` (f32 or bf16
+    values) and x, bytes, flops): the segments, their offsets and
+    pointers and x read once, y written once; 2 flops per stored value."""
+    y = torch.empty(tiles.n, device=x.device)
+    fn = (lib.dia_spmv_f32 if tiles.seg_vals.dtype == torch.float32
           else lib.dia_spmv_bf16)
     stream = torch.cuda.current_stream().cuda_stream
 
     def raw():
-        fn(diags.data_ptr(), offsets_dev.data_ptr(), k, m, x.data_ptr(),
-           y.data_ptr(), stream)
-    return raw, k * m * diags.element_size() + 2 * m * 4 + 4 * k, 2 * k * m
+        _build.check(fn(tiles.seg_ptr.data_ptr(), tiles.seg_off.data_ptr(),
+                        tiles.seg_vals.data_ptr(), tiles.n, int(tiles.split),
+                        x.data_ptr(), y.data_ptr(), stream), "K1 raw")
+    return (raw, tiles.nbytes + 2 * tiles.n * 4,
+            2 * tiles.seg_vals.numel())
+
+
+def k1_fields(tiles, k: int, nnz: int) -> dict:
+    """A K1 row's fields beside `bound_ms` (the compact layout's): the
+    bound of a dense walk (all K diagonals over n rows, the layout before
+    the compact one), the floor of any format (the nonzero values, x and
+    y), the segment count and the bytes the layout stores."""
+    n, d = tiles.n, tiles.seg_vals.element_size()
+    return dict(dense_bound_ms=bound(k * n * d + 2 * n * 4 + 4 * k,
+                                     2 * k * n)[0],
+                nnz_floor_ms=bound(nnz * d + 2 * n * 4, 2 * nnz)[0],
+                segments=tiles.n_segs, stored_bytes=tiles.nbytes,
+                split_form=tiles.split)
+
+
+def csr_sequential(op, X: torch.Tensor) -> torch.Tensor:
+    """Y = A X for the CsrSpMV `op`, summed in CSR order with one multiply
+    and one add per step (separate PyTorch ops: no fused multiply-add),
+    position by position over the rows padded to their longest; a padded
+    position leaves the sum as it is. K3's arithmetic, bit for bit."""
+    lens = op.row_ptr.diff().long()
+    steps = torch.arange(int(lens.max()), device=X.device)
+    live = steps[None, :] < lens[:, None]
+    pos = torch.where(live, op.row_ptr[:-1].long()[:, None] + steps, 0)
+    cols, vals = op.cols.long()[pos], op.vals[pos]
+    acc = X.new_zeros((op.shape[0], X.shape[1]))
+    for p in range(steps.shape[0]):
+        acc = torch.where(live[:, p:p + 1],
+                          acc + vals[:, p:p + 1] * X[cols[:, p]], acc)
+    return acc
 
 
 def library_call(op, x2d: torch.Tensor, c2d=None):
@@ -825,9 +871,14 @@ def stream_training(A_p, flush, smi) -> list:
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
     errs, lib_errs, timing = {}, {}, {}
+    bitwise = {}
     for key, op in (("A", mm), ("At", mt)):
         y = op(X)
         errs[key] = compare(y, op.plain(X), f"K3 on {key}")
+        # the redesigned kernel keeps each output's arithmetic: a CSR-order
+        # sequential sum, product by product
+        bitwise[key] = bool(torch.equal(y, csr_sequential(op, X)))
+        require(bitwise[key], f"K3 on {key} is not the CSR-order sum")
         # the library yardstick: one torch.sparse.mm (cuSPARSE SpMM) on
         # the same CSR
         lib_mat = csr_tensor(op)
@@ -837,22 +888,37 @@ def stream_training(A_p, flush, smi) -> list:
         out = torch.empty_like(X)
 
         def raw(op=op, out=out):
-            lib.csr_spmm_f32(op.row_ptr.data_ptr(), op.cols.data_ptr(),
-                             op.vals.data_ptr(), n, m, X.data_ptr(),
-                             out.data_ptr(), stream)
+            _build.check(lib.csr_spmm_f32(
+                op.row_ptr.data_ptr(), op.cols.data_ptr(),
+                op.vals.data_ptr(), n, m, X.data_ptr(), out.data_ptr(),
+                stream), "K3 raw")
         timing[key] = dict(
             ms=cuda_ms_cold(raw, 20, flush),
-            warm_ms=float(np.median([cuda_ms(raw, iters=20)
-                                     for _ in range(5)])),
-            device_ms=profile_cycles(lambda c: [raw() for _ in range(c)])[
-                "device_busy_ms_per_cycle"],
             plain_ms=cuda_ms_cold(lambda op=op: op.plain(X), 5, flush),
-            library_ms=cuda_ms_cold(lib_fn, 20, flush))
+            library_ms=cuda_ms_cold(lib_fn, 20, flush),
+            **warm_and_device_ms(raw))
+    # the scalar variant: M not a multiple of 4 (M = 7), and X at an
+    # address that is not 16-byte aligned (M = 20)
+    X7 = X[:, :7].contiguous()
+    buf = torch.empty(n * m + 1, device=dev)
+    X_off = buf[1:].view(n, m)
+    X_off.copy_(X)
+    require(X_off.data_ptr() % 16 != 0, "X_off must be misaligned")
+    scalar = {}
+    for key, xin in (("M7", X7), ("misaligned", X_off)):
+        y = mm(xin)
+        scalar[key] = dict(compare(y, mm.plain(xin), f"K3 {key}"),
+                           bitwise_csr_order=bool(torch.equal(
+                               y, csr_sequential(mm, xin))))
+        require(scalar[key]["bitwise_csr_order"], (key, scalar[key]))
+    require(torch.equal(mm(X_off), mm(X)), "misaligned X changed K3's sums")
+    del buf, X_off, X7
     # each input read once, the output written once: the CSR, X, Y
     bytes_moved = mm.nnz * 8 + (n + 1) * 4 + 2 * n * m * 4
     bound_ms, bound_by = bound(bytes_moved, 2 * mm.nnz * m)
     emit(dict(phase="spmm", n=n, nnz=mm.nnz, m=m,
-              results=list(errs.values()), library_vs_kernel=lib_errs,
+              results=list(errs.values()), bitwise_csr_order=bitwise,
+              scalar_variant=scalar, library_vs_kernel=lib_errs,
               bytes=bytes_moved, bound_ms=bound_ms, bound_by=bound_by,
               times=timing, nvidia_smi=smi))
 
@@ -1009,9 +1075,11 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
                     diags_grad=compare(gd, d2.grad,
                                        f"{key}: diagonals gradient"))
         del gd, d2, x2
-        t = op.transposed
-        raw, bytes_moved, flops = dia_raw(lib, t.diags, op.offsets_t_dev, w)
+        tiles_t = op.tiles_t
+        raw, bytes_moved, flops = dia_raw(lib, tiles_t, w)
         lib_mat = csr_tensor(A_t if key == "A" else plain.Ac.transpose())
+        # the plain version on A^T's dense diagonals, built here only
+        t = dia_transpose(op.plain())
         errs["library"] = compare(lib_mat @ w, gx,
                                   f"cuSPARSE A^T w yardstick of {key}")
         bound_ms, bound_by = bound(bytes_moved, flops)
@@ -1023,11 +1091,13 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
             plain_ms=cuda_ms_cold(lambda: dia_matvec(t.diags, t.offsets, w),
                                   5, flush),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=cuda_ms_cold(lambda: lib_mat @ w, 20, flush)))
+            library_ms=cuda_ms_cold(lambda: lib_mat @ w, 20, flush),
+            **k1_fields(tiles_t, len(t.offsets), op.nnz)))
         grad_out[key] = dict(K=len(op.offsets), K_transposed=len(t.offsets),
-                             launches=launches, results=errs,
-                             **warm_and_device_ms(raw))
-        del lib_mat
+                             launches=launches, rebuilds=op.rebuilds,
+                             results=errs, **warm_and_device_ms(raw))
+        require(op.rebuilds == 0, (key, "rebuilt by forward and backward"))
+        del lib_mat, t
     emit(dict(phase="dia_grad", rtol=RTOL, atol=f"{RTOL} * max|g|",
               **grad_out, nvidia_smi=smi))
 
@@ -1044,8 +1114,7 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
         bitwise = bool(torch.equal(y16, op32.matvec(x)))
         if key == "A":  # -4 and 1 are exact in bf16
             require(bitwise, "bf16 K1 on A must equal the f32 kernel")
-        raw, bytes_moved, flops = dia_raw(lib, op16.diags, op16.offsets_dev,
-                                          x)
+        raw, bytes_moved, flops = dia_raw(lib, op16.tiles, x)
         lib_mat = csr_tensor(getattr(plain, key))
         bound_ms, bound_by = bound(bytes_moved, flops)
         rows_out.append(dict(
@@ -1054,7 +1123,8 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
             max_abs_err=err["max_abs_err"], ms=cuda_ms_cold(raw, 20, flush),
             plain_ms=cuda_ms_cold(lambda: op16.plain().matvec(x), 5, flush),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=cuda_ms_cold(lambda: lib_mat @ x, 20, flush)))
+            library_ms=cuda_ms_cold(lambda: lib_mat @ x, 20, flush),
+            **k1_fields(op16.tiles, len(op16.offsets), op16.nnz)))
         bf_out[key] = dict(K=len(op16.offsets), result=err,
                            bitwise_equal_to_f32_kernel=bitwise,
                            max_rel_err_vs_f32_kernel=float(
@@ -1142,9 +1212,10 @@ def jax_bench_reference() -> dict:
         r'"(convfac_\w+|pcg_iters_to_1e8)": ([0-9.]+)', tail)}
 
 
-def multigrid_phases(A, plain, fast, b, flush, smi) -> None:
+def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
     """Phases 20-22: the SA hierarchy and mg_pcg at 1024^2, amg_pcg on the
-    fast setup, and the convergence-factor table."""
+    fast setup, and the convergence-factor table; returns the rows of K1
+    on each SA level it runs on."""
     dev, n = A.device, A.n_rows
     lib = _build.load()
     ref = jax_bench_reference()
@@ -1219,21 +1290,44 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> None:
     busy = profile_cycles(lambda c: [solve_once() for _ in range(c)])
     busy_iter = busy["device_busy_ms_per_cycle"] / PCG_ITERS
     peak = torch.cuda.max_memory_allocated()
-    levels = []
+    rebuilds = {lvl: a.rebuilds for lvl, a in on_k1.items()}
+    require(not any(rebuilds.values()), ("K1 layouts rebuilt", rebuilds))
+    levels, rows_out = [], []
+    gen = np.random.default_rng(19)
     for lvl, a0 in enumerate(sa.As):
         entry = dict(level=lvl, rows=a0.n_rows, nnz=a0.nnz,
                      on_k1=lvl in on_k1,
                      P_nnz=sa.Ps[lvl].nnz if lvl < L - 1 else None)
         if lvl in on_k1:
             op = on_k1[lvl]
-            xin = torch.ones(op.n, device=dev)
-            raw, bytes_moved, flops = dia_raw(lib, op.diags, op.offsets_dev,
-                                              xin)
-            entry.update(K=len(op.offsets),
-                         diag_bytes=op.diags.numel() * 4,
-                         k1_launches=got[lvl],
-                         k1_ms=cuda_ms_cold(raw, 10, flush),
-                         bound_ms=bound(bytes_moved, flops)[0])
+            xin = torch.from_numpy(gen.standard_normal(op.n).astype(
+                np.float32)).to(dev)
+            err = compare(op.matvec(xin), op.plain().matvec(xin),
+                          f"K1 on SA level {lvl}")
+            lib_mat = csr_tensor(a0)
+            lib_err = compare(lib_mat @ xin, op.matvec(xin),
+                              f"cuSPARSE yardstick of SA level {lvl}")
+            raw, bytes_moved, flops = dia_raw(lib, op.tiles, xin)
+            bound_ms, bound_by = bound(bytes_moved, flops)
+            row = dict(
+                name=f"dia_spmv[SA{lvl}]", route="cuda", source=K1_ROW[0],
+                replaces=K1_ROW[1], launches=got[lvl],
+                max_abs_err=err["max_abs_err"],
+                ms=cuda_ms_cold(raw, 10, flush),
+                plain_ms=cuda_ms_cold(lambda: op.plain().matvec(xin), 5,
+                                      flush),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms_cold(lambda: lib_mat @ xin, 10, flush),
+                **k1_fields(op.tiles, len(op.offsets), op.nnz))
+            rows_out.append(row)
+            entry.update(K=len(op.offsets), diag_bytes=op.diags.numel() * 4,
+                         k1_launches=got[lvl], k1_ms=row["ms"],
+                         result=err, library_vs_kernel=lib_err,
+                         **{k: row[k] for k in (
+                             "plain_ms", "library_ms", "bound_ms",
+                             "dense_bound_ms", "nnz_floor_ms", "segments",
+                             "stored_bytes", "split_form")})
+            del lib_mat
         levels.append(entry)
 
     # the classical hierarchy (pmis, signed interpolation, truncation)
@@ -1253,6 +1347,7 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> None:
               pcg_iters=PCG_ITERS, rel_residual_history=rel_hist.tolist(),
               iters_to_1e8=iters, jax_iters_to_1e8=ref["pcg_iters_to_1e8"],
               true_rel_residual=true_rel, k1_launches=got,
+              k1_rebuilds=rebuilds,
               rel_err_vs_plain_dia_levels=rel, rel_err_64sq_vs_cpu=rel_small,
               ms_per_iter=ms_iter, ms_to_1e8=ms_iter * iters,
               device_busy_ms_per_iter=busy_iter,
@@ -1274,6 +1369,8 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> None:
     x, hist = amg_pcg(fast, b, x0, n_iters=10, flip_sign=True)
     torch.cuda.synchronize()
     launches = {k: op.launches for k, op in counted.items()}
+    require(fast.A.rebuilds == fast.Ac.rebuilds == 0,
+            "a K1 layout was rebuilt inside amg_pcg")
     c = 10 + 1
     # per cycle: A 1 + 1 + 1 (n_smooth 1), Ac the Chebyshev's degree 4,
     # P and P^T once; CG's matvec adds one A per iteration
@@ -1288,9 +1385,14 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> None:
     ms_pcg = float(np.median([cuda_ms(lambda: amg_pcg(
         fast, b, x0, n_iters=10, flip_sign=True), iters=1, warmup=1)
         for _ in range(5)])) / 10
+    busy_pcg = profile_cycles(lambda c: [amg_pcg(
+        fast, b, x0, n_iters=10, flip_sign=True) for _ in range(c)])[
+            "device_busy_ms_per_cycle"] / 10
     emit(dict(phase="pcg", rel_residual_history=h.tolist(),
               cg_rel_residual_history=h_cg.tolist(), launches=launches,
               rel_err_vs_plain_setup=rel_pcg, ms_per_iter=ms_pcg,
+              device_busy_ms_per_iter=busy_pcg,
+              idle_share=1.0 - busy_pcg / ms_pcg,
               nvidia_smi=smi))
 
     # ------------------------------------------------------- convergence
@@ -1321,6 +1423,7 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> None:
                            sa_levels_on_k1=[isinstance(a, DiaKernelOperator)
                                             for a in sa_s.As])
     emit(dict(phase="convergence", cycles=8, table=table))
+    return rows_out
 
 
 def main() -> int:
@@ -1364,11 +1467,21 @@ def main() -> int:
     require(isinstance(fast.Ac, DiaKernelOperator), type(fast.Ac))
     require(isinstance(fast.P, RectStreamOperator), type(fast.P))
     n, nc = fast.P.shape
+    # K1 reads Ac's compact layout: at most the pattern's nonzero
+    # (32-row tile, diagonal) pairs, a small part of the dense 1,058 MB
+    ac_tiles = fast.Ac.tiles
+    require(ac_tiles.n_segs <= AC_SEGMENTS_MAX
+            and ac_tiles.nbytes < AC_STORED_BYTES_MAX,
+            (ac_tiles.n_segs, ac_tiles.nbytes))
     emit(dict(phase="setup", native_cljp=native_ext.available(),
               setup_twogrid_s=t_setup, swap_s=t_swap, n=n, nc=nc,
               A_nnz=A.nnz, A_K=len(fast.A.offsets), Ac_nnz=plain.Ac.nnz,
               Ac_K=len(fast.Ac.offsets),
               Ac_max_abs_offset=max(abs(o) for o in fast.Ac.offsets),
+              Ac_segments=ac_tiles.n_segs, Ac_stored_bytes=ac_tiles.nbytes,
+              Ac_dense_bytes=fast.Ac.diags.numel() * 4,
+              Act_segments=fast.Ac.tiles_t.n_segs,
+              Act_stored_bytes=fast.Ac.tiles_t.nbytes,
               P_nnz=fast.P.nnz))
 
     # ------------------------------------------- kernel vs plain version
@@ -1410,6 +1523,9 @@ def main() -> int:
     want_launches = {"A": 7 * N_CYCLES, "Ac": 4 * N_CYCLES,
                      "P": N_CYCLES, "Pt": N_CYCLES}
     require(launches == want_launches, (launches, want_launches))
+    # no compaction inside a cycle: the layouts built at setup serve all
+    rebuilds = {"A": fast.A.rebuilds, "Ac": fast.Ac.rebuilds}
+    require(rebuilds == {"A": 0, "Ac": 0}, rebuilds)
     x_plain = solve(plain, b, torch.zeros(n, device=dev), n_cycles=N_CYCLES)
     require(x.shape == (n,) and bool(torch.isfinite(x).all()),
             "x must be finite, of shape [n]")
@@ -1430,7 +1546,8 @@ def main() -> int:
     rel_small = float((x_s - x_h).abs().max() / x_h.abs().max())
     require(rel_small <= 2e-5, rel_small)
     emit(dict(phase="solve", cycles=N_CYCLES, residual_norms=res,
-              launches=launches, rel_err_vs_plain_path=rel,
+              launches=launches, k1_rebuilds=rebuilds,
+              rel_err_vs_plain_path=rel,
               rel_err_64sq_vs_cpu=rel_small))
 
     # ----------------------------------------------------------- times
@@ -1440,21 +1557,25 @@ def main() -> int:
     ms_cycle_plain = cuda_ms(lambda: solve(plain, b, x0, n_cycles=1),
                              iters=3, warmup=1)
     peak = torch.cuda.max_memory_allocated()
+    require(fast.A.rebuilds == fast.Ac.rebuilds == 0,
+            "a K1 layout was rebuilt during the timed cycles")
 
     flush = torch.ones(64 * 2 ** 20, device=dev)  # 256 MB > the 50 MB L2
-    kernels, warm = [], {}
+    kernels, warm, lib_errs = [], {}, {}
     for key, (kern, ref, xin) in shapes.items():
+        extra = {}
         if key in ("A", "Ac"):
             op = getattr(fast, key)
-            raw, bytes_moved, flops = dia_raw(lib, op.diags, op.offsets_dev,
-                                              xin)
+            raw, bytes_moved, flops = dia_raw(lib, op.tiles, xin)
             kname, (src, rep) = "dia_spmv", K1_ROW
             lib_mat = csr_tensor(getattr(plain, key))
+            extra = k1_fields(op.tiles, len(op.offsets), op.nnz)
         else:
             raw, bytes_moved, flops = csr_raw(lib, kern, xin)
             kname, src, rep = K2_ROW
             lib_mat = csr_tensor(kern)
-        lib_mat @ xin
+        lib_errs[key] = compare(lib_mat @ xin, kern(xin),
+                                f"cuSPARSE yardstick of {key}")
         bound_ms, bound_by = bound(bytes_moved, flops)
         kernels.append(dict(
             name=f"{kname}[{key}]", route="cuda", source=src, replaces=rep,
@@ -1462,14 +1583,19 @@ def main() -> int:
             ms=cuda_ms_cold(raw, 20, flush),
             plain_ms=cuda_ms_cold(lambda: ref(xin), 5, flush),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=cuda_ms_cold(lambda: lib_mat @ xin, 20, flush)))
+            library_ms=cuda_ms_cold(lambda: lib_mat @ xin, 20, flush),
+            **extra))
         # back to back, L2 warm: the wrapper (checks + launch) and the raw
         # launch it wraps; the gap between them is the wrapper's host cost
         warm[key] = dict(wrapper_ms=cuda_ms(lambda: kern(xin), iters=50),
                          raw_ms=cuda_ms(raw, iters=50),
                          launches_per_cycle=launches[key] // N_CYCLES)
+    k1_ac = kernels[1]
     emit(dict(phase="times", ms_per_cycle=ms_cycle,
               ms_per_cycle_plain_path=ms_cycle_plain,
+              k1_ac_ms=k1_ac["ms"], k1_ac_library_ms=k1_ac["library_ms"],
+              k1_ac_below_library=k1_ac["ms"] < k1_ac["library_ms"],
+              library_vs_kernel=lib_errs,
               kernel_ms_per_cycle=sum(
                   kk["ms"] * warm[key]["launches_per_cycle"]
                   for key, kk in zip(shapes, kernels)),
@@ -1486,7 +1612,7 @@ def main() -> int:
     kernels += k2_rows
     kernels += stream_training(A_p, flush, smi)
     kernels += kernel_grads(A, plain, fast, flush, smi)
-    multigrid_phases(A, plain, fast, b, flush, smi)
+    kernels += multigrid_phases(A, plain, fast, b, flush, smi)
     jacobi_weights(dev)
     train_phase(dev, smi)
     emit({"kernels": kernels})

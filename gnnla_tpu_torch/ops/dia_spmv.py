@@ -9,17 +9,27 @@ protocol the solvers consume, so `models.vcycle.setup_with_dia(...,
 kernel=True)` and `models.multigrid.setup_with_dia_multigrid(...,
 kernel=True)` swap it into a cycle.
 
+The kernel reads a tile-compressed copy of the diagonals (`dia_tiles`):
+for each tile of 32 rows only the diagonals with a nonzero value in those
+rows, as segments of 32 values. A Galerkin coarse operator's band is
+mostly structural zeros (the fast setup's Ac keeps 2% of its dense
+diagonal array), and the kernel streams only what the tiles hold. The
+dense `diags` stay the operator's parameter, the plain version's storage
+and the gradient's shape; the compact copies of A and A^T are built from
+them at construction and again only when they were replaced or changed
+in place (counted in `rebuilds`), never inside a cycle that leaves them
+alone.
+
 The diagonals are stored in f32 or, with `diag_dtype=torch.bfloat16`, in
-bf16 (the JAX package's `diag_dtype`): the diagonal stream is the
-dominant traffic, and the kernel widens each value to f32 before its
-product, so x, y and the sums stay f32.
+bf16 (the JAX package's `diag_dtype`): the kernel widens each value to
+f32 before its product, so x, y and the sums stay f32.
 
 Differentiable in x and in the diagonals with the JAX package's custom
-VJP (`pallas_spmv.py:191-207`): x's cotangent is K1 again on the
-transposed diagonals (`ops/dia.py::dia_transpose`, built once at
+VJP (`pallas_spmv.py:191-207`): x's cotangent is K1 again on the compact
+layout of the transposed diagonals (`ops/dia.py::dia_transpose`, built at
 construction as `PallasDiaSpMV.__init__` builds them), the diagonals'
-cotangent ybar[i] * x[i + off_k] in plain array ops (zero where i + off_k
-leaves [0, n)), cast to the stored dtype.
+cotangent ybar[i] * x[i + off_k] in plain array ops over the whole [K, n]
+band (zero where i + off_k leaves [0, n)), cast to the stored dtype.
 
 The TPU's tile fitting (`fit_dia_tile`) and halo-padded layout have no
 counterpart: they exist for the TPU's VMEM. The kernel takes plain [n]
@@ -28,7 +38,7 @@ vectors; its bounds guard replaces the halo padding.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import torch
 
@@ -36,6 +46,10 @@ from gnnla_tpu_torch import _build
 from gnnla_tpu_torch.ops.dia import DIAOperator, dia_matvec, dia_transpose
 
 DIAG_DTYPES = (torch.float32, torch.bfloat16)
+TILE = 32  # rows per tile: a warp's rows (csrc/dia_spmv.cu kTile)
+# below this many tiles (4 warps for each of an H100's 132 SMs) the kernel
+# splits each tile's segments across the 8 warps of a block
+SPLIT_TILES = 4 * 132
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -43,35 +57,90 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"dia_spmv: {msg}")
 
 
-def dia_spmv_cuda(diags: torch.Tensor, offsets: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
-    """Launch K1: y = A x for diags [K, n] f32 or bf16, offsets [K] int32
+class DiaTiles(NamedTuple):
+    """K1's layout of diagonals [K, n]: tile t (rows 32t .. 32t+31) owns
+    segments seg_ptr[t] .. seg_ptr[t+1]-1, each one diagonal (offset
+    seg_off[s], increasing within a tile) with a nonzero value in the
+    tile's rows, its 32 values in seg_vals[s] (zero past row n). `split`
+    picks the kernel's split form, from n alone."""
+    seg_ptr: torch.Tensor   # [n_tiles + 1] int32
+    seg_off: torch.Tensor   # [n_segs] int32
+    seg_vals: torch.Tensor  # [n_segs, TILE] f32 or bf16
+    n: int
+    split: bool
+
+    @property
+    def n_segs(self) -> int:
+        return self.seg_off.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the kernel streams for the layout (x and y aside)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.seg_ptr, self.seg_off, self.seg_vals))
+
+
+def dia_tiles(diags: torch.Tensor,
+              offsets: Union[Sequence[int], torch.Tensor]) -> DiaTiles:
+    """The compact layout of diagonals [K, n] with sorted offsets [K], on
+    their device, with torch ops (no host loop). Exact: scattering the
+    segments back gives `diags`."""
+    k, n = diags.shape
+    dev = diags.device
+    n_tiles = -(-n // TILE)
+    full = n // TILE
+    with torch.no_grad():
+        nz = diags.ne(0)
+        mask = torch.zeros(n_tiles, k, dtype=torch.bool, device=dev)
+        if full:
+            mask[:full] = nz[:, :full * TILE].view(k, full, TILE).any(-1).T
+        if full < n_tiles:
+            mask[full] = nz[:, full * TILE:].any(-1)
+        del nz
+        tile, kk = mask.nonzero(as_tuple=True)  # by tile, then k
+        _require(tile.shape[0] < 2 ** 31, "more segments than int32 holds")
+        seg_ptr = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(mask.sum(1), 0, out=seg_ptr[1:])
+        seg_off = torch.as_tensor(offsets, device=dev).to(torch.int32)[kk]
+        rows = tile[:, None] * TILE + torch.arange(TILE, device=dev)
+        inside = rows < n
+        flat = kk[:, None] * n + rows.clamp_(max=max(n - 1, 0))
+        seg_vals = diags.reshape(-1)[flat].masked_fill_(~inside, 0)
+    return DiaTiles(seg_ptr.to(torch.int32), seg_off.contiguous(), seg_vals,
+                    n, n_tiles < SPLIT_TILES)
+
+
+def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
+    """Launch K1: y = A x for A's compact layout `tiles` (from `dia_tiles`)
     and x [n] f32, all contiguous on one CUDA device."""
     _require(x.device.type == "cuda", f"x lies on {x.device}, not CUDA")
-    _require(diags.device == x.device and offsets.device == x.device,
-             "diags, offsets and x must share one device")
-    _require(diags.dtype in DIAG_DTYPES and x.dtype == torch.float32,
-             "diags must be float32 or bfloat16 and x float32")
-    _require(offsets.dtype == torch.int32, "offsets must be int32")
-    _require(diags.ndim == 2 and x.ndim == 1 and offsets.ndim == 1,
-             "diags [K, n], offsets [K] and x [n] expected")
-    k, n = diags.shape
-    _require(offsets.shape[0] == k and x.shape[0] == n,
-             f"shapes diags {tuple(diags.shape)}, offsets "
-             f"{tuple(offsets.shape)}, x {tuple(x.shape)} disagree")
-    _require(k <= 12 * 1024, f"K={k} offsets exceed the 48 KB of shared "
-             "memory the kernel stages them in")
-    _require(diags.is_contiguous() and x.is_contiguous()
-             and offsets.is_contiguous(), "inputs must be contiguous")
+    ptr, off, vals = tiles.seg_ptr, tiles.seg_off, tiles.seg_vals
+    _require(all(t.device == x.device for t in (ptr, off, vals)),
+             "the layout and x must share one device")
+    _require(vals.dtype in DIAG_DTYPES and x.dtype == torch.float32,
+             "diagonal values must be float32 or bfloat16 and x float32")
+    _require(ptr.dtype == torch.int32 and off.dtype == torch.int32,
+             "segment pointers and offsets must be int32")
+    n = tiles.n
+    _require(x.ndim == 1 and x.shape[0] == n
+             and ptr.shape == (-(-n // TILE) + 1,)
+             and vals.shape == (off.shape[0], TILE),
+             f"shapes seg_ptr {tuple(ptr.shape)}, seg_off "
+             f"{tuple(off.shape)}, seg_vals {tuple(vals.shape)}, x "
+             f"{tuple(x.shape)} disagree with n={n}")
+    _require(n < 2 ** 31 - TILE, f"n={n} exceeds the kernel's int32 rows")
+    _require(all(t.is_contiguous() for t in (ptr, off, vals, x)),
+             "inputs must be contiguous")
     y = torch.empty_like(x)
     lib = _build.load()
     fn, name = ((lib.dia_spmv_f32, "dia_spmv_f32")
-                if diags.dtype == torch.float32
+                if vals.dtype == torch.float32
                 else (lib.dia_spmv_bf16, "dia_spmv_bf16"))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.check(fn(diags.data_ptr(), offsets.data_ptr(), k, n,
-                        x.data_ptr(), y.data_ptr(), stream), name)
+        _build.check(fn(ptr.data_ptr(), off.data_ptr(), vals.data_ptr(), n,
+                        int(tiles.split), x.data_ptr(), y.data_ptr(),
+                        stream), name)
     return y
 
 
@@ -91,15 +160,17 @@ def diags_cotangent(offsets: Tuple[int, ...], ybar: torch.Tensor,
 
 class _DiaGrad(torch.autograd.Function):
     """y = A(diags) x on K1 with the VJP of the JAX `PallasDiaSpMV.apply`:
-    x's cotangent K1 on the transposed diagonals, the diagonals'
-    `diags_cotangent`; each only when autograd asks for it."""
+    x's cotangent K1 on the transposed layout, the diagonals'
+    `diags_cotangent`; each only when autograd asks for it. `diags` is
+    the operator's own tensor, passed so that autograd tracks it; the
+    launch reads the layout built from it."""
 
     @staticmethod
     def forward(ctx, x, diags, op):
         ctx.op = op
         if ctx.needs_input_grad[1]:
             ctx.save_for_backward(x)
-        return op.launch(x, diags)
+        return op.launch(x)
 
     @staticmethod
     def backward(ctx, ybar):
@@ -120,10 +191,12 @@ class DiaKernelOperator:
 
     `launches` counts the kernel launches made through `matvec` and its
     backward (x's cotangent is one more launch, on the transposed
-    diagonals); it never moves on the CPU path, which runs the plain
-    version. `diag_dtype` (float32 or bfloat16; default: the dtype of
-    `diags`) is the storage of the diagonal stream; `diagonal()` stays
-    the f32 diagonal given, as the JAX operator's `diag` leaf does."""
+    layout); it never moves on the CPU path, which runs the plain
+    version. `rebuilds` counts the compactions after construction (the
+    diagonals replaced or updated in place). `diag_dtype` (float32 or
+    bfloat16; default: the dtype of `diags`) is the storage of the
+    diagonal stream; `diagonal()` stays the f32 diagonal given, as the JAX
+    operator's `diag` leaf does."""
 
     def __init__(self, diags: torch.Tensor, offsets: Tuple[int, ...],
                  n: int, nnz: int, diag_dtype=None):
@@ -137,12 +210,12 @@ class DiaKernelOperator:
         self._diag = (None if diags.dtype == diag_dtype == torch.float32
                       else diags[k0].detach().to(torch.float32, copy=True))
         self.diags = diags.to(diag_dtype).contiguous()
-        self.offsets_dev = torch.tensor(self.offsets, dtype=torch.int32,
-                                        device=diags.device)
         self.n = int(n)
         self.nnz = int(nnz)
         self.launches = 0
-        self._transpose()
+        self.rebuilds = 0
+        self._key = None
+        self.layouts()
 
     @property
     def n_rows(self) -> int:
@@ -156,36 +229,41 @@ class DiaKernelOperator:
         """The same operator on the plain PyTorch path (shares tensors)."""
         return DIAOperator(self.diags, self.offsets, self.n, self.nnz)
 
-    def _transpose(self) -> DIAOperator:
-        """A^T's diagonals, built from the stored ones (exact shifts) at
-        construction and again only if the diagonals were replaced or
-        updated in place since."""
+    def layouts(self) -> Tuple[DiaTiles, DiaTiles]:
+        """The compact layouts of A and A^T, built from the stored
+        diagonals at construction and again only if they were replaced or
+        updated in place since. A^T's dense diagonals, which the plain
+        version needs, are kept only on the CPU: on the card they would
+        double the operator's memory for nothing the kernel reads."""
         key = (self.diags.data_ptr(), self.diags._version)
-        if getattr(self, "_t_key", None) != key:
+        if self._key != key:
+            if self._key is not None:
+                self.rebuilds += 1
             with torch.no_grad():
                 t = dia_transpose(self.plain())
-            self.transposed = t
-            self.offsets_t_dev = torch.tensor(t.offsets, dtype=torch.int32,
-                                              device=t.diags.device)
-            self._t_key = key
-        return self.transposed
+                self.tiles = dia_tiles(self.diags, self.offsets)
+                self.tiles_t = dia_tiles(t.diags, t.offsets)
+            self.transposed = t if self.diags.device.type == "cpu" else None
+            self._key = key
+        return self.tiles, self.tiles_t
 
-    def launch(self, x: torch.Tensor, diags: torch.Tensor) -> torch.Tensor:
-        """y = A(diags) x with no autograd: K1 on a CUDA tensor (counted),
-        the plain version on a CPU tensor."""
+    def launch(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A x with no autograd: K1 on a CUDA tensor (counted), the
+        plain version on a CPU tensor."""
         if x.device.type == "cpu":
-            return dia_matvec(diags, self.offsets, x)
-        y = dia_spmv_cuda(diags, self.offsets_dev, x)
+            return dia_matvec(self.diags, self.offsets, x)
+        y = dia_tiles_spmv_cuda(self.layouts()[0], x)
         self.launches += 1
         return y
 
     def launch_t(self, ybar: torch.Tensor) -> torch.Tensor:
-        """A^T ybar: K1 on the transposed diagonals (counted) on a CUDA
+        """A^T ybar: K1 on the transposed layout (counted) on a CUDA
         tensor, the plain version on a CPU tensor."""
-        t = self._transpose()
+        tiles_t = self.layouts()[1]
         if ybar.device.type == "cpu":
+            t = self.transposed
             return dia_matvec(t.diags, t.offsets, ybar)
-        y = dia_spmv_cuda(t.diags, self.offsets_t_dev, ybar)
+        y = dia_tiles_spmv_cuda(tiles_t, ybar)
         self.launches += 1
         return y
 
@@ -195,7 +273,7 @@ class DiaKernelOperator:
         if torch.is_grad_enabled() and (x.requires_grad
                                         or self.diags.requires_grad):
             return _DiaGrad.apply(x, self.diags, self)
-        return self.launch(x, self.diags)
+        return self.launch(x)
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
         return self.matvec(x)

@@ -1,5 +1,6 @@
 """Kernels K1, K2, K3 and K4 against their plain PyTorch versions on the
-card, their gradients there, K1's bf16 diagonal storage, and the
+card, their gradients there, K1's bf16 diagonal storage and compact layout
+(both launch forms, rebuilds), K3's float4 and scalar variants, and the
 multilevel and Krylov solvers on the kernels.
 
 Marked `gpu`: run on a machine with an NVIDIA card (and nvcc) with
@@ -82,20 +83,20 @@ def test_fast_cycle_matches_plain_and_counts(cuda):
 
 
 def test_wrappers_refuse_bad_operands(cuda):
-    from gnnla_tpu_torch.ops.dia_spmv import dia_spmv_cuda
+    from gnnla_tpu_torch.ops.dia_spmv import dia_tiles, dia_tiles_spmv_cuda
     from gnnla_tpu_torch.ops.stream_spmv import csr_spmv_cuda
 
-    diags = torch.ones(1, 8, device=cuda)
-    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+    tiles = dia_tiles(torch.ones(1, 8, device=cuda), (0,))
     with pytest.raises(ValueError, match="float32"):
-        dia_spmv_cuda(diags, offs, torch.ones(8, device=cuda,
+        dia_tiles_spmv_cuda(tiles, torch.ones(8, device=cuda,
                                               dtype=torch.float64))
     with pytest.raises(ValueError, match="int32"):
-        dia_spmv_cuda(diags, offs.long(), torch.ones(8, device=cuda))
+        dia_tiles_spmv_cuda(tiles._replace(seg_off=tiles.seg_off.long()),
+                            torch.ones(8, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
-        dia_spmv_cuda(diags, offs, torch.ones(16, device=cuda)[::2])
+        dia_tiles_spmv_cuda(tiles, torch.ones(16, device=cuda)[::2])
     with pytest.raises(ValueError, match="disagree"):
-        dia_spmv_cuda(diags, offs, torch.ones(9, device=cuda))
+        dia_tiles_spmv_cuda(tiles, torch.ones(9, device=cuda))
     rp = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
     cols = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
@@ -486,15 +487,15 @@ def test_dia_bf16_kernel_matches_plain(cuda):
 
 
 def test_dia_wrapper_refuses_other_diagonal_types(cuda):
-    from gnnla_tpu_torch.ops.dia_spmv import dia_spmv_cuda
+    from gnnla_tpu_torch.ops.dia_spmv import dia_tiles, dia_tiles_spmv_cuda
 
-    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
     x = torch.ones(8, device=cuda)
     for dt in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="bfloat16"):
-            dia_spmv_cuda(torch.ones(1, 8, device=cuda, dtype=dt), offs, x)
-    y = dia_spmv_cuda(torch.full((1, 8), 2.0, device=cuda,
-                                 dtype=torch.bfloat16), offs, x)
+            dia_tiles_spmv_cuda(dia_tiles(torch.ones(
+                1, 8, device=cuda, dtype=dt), (0,)), x)
+    y = dia_tiles_spmv_cuda(dia_tiles(torch.full(
+        (1, 8), 2.0, device=cuda, dtype=torch.bfloat16), (0,)), x)
     assert torch.equal(y, torch.full((8,), 2.0, device=cuda))
 
 
@@ -614,3 +615,92 @@ def test_training_loss_on_the_card_matches_the_cpu(cuda, layout):
     assert abs(lg - lc) <= 1e-4 * abs(lc)
     assert bool(((gg - gc).abs() <= 1e-4 * gc.abs()
                  + 1e-6 * gc.abs().max()).all())
+
+
+# ------------------------------------- K1's compact layout, K3's variants
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dia_tiles_on_every_sa_level(cuda, dtype):
+    """K1 on the compact layout of every level of the 160^2 SA hierarchy
+    (level 0 takes the warp-per-tile form, the coarse levels the split
+    form): each form against the plain version, one launch per matvec."""
+    from gnnla_tpu_torch.models import (setup_sa_multigrid,
+                                        setup_with_dia_multigrid)
+    from gnnla_tpu_torch.ops.dia import DIAOperator, dia_transpose
+    from gnnla_tpu_torch.ops.dia_spmv import (dia_kernel_operator,
+                                              dia_tiles_spmv_cuda)
+
+    mg = setup_with_dia_multigrid(setup_sa_multigrid(
+        _grid_op("lap", 160, cuda), seed=0))
+    assert all(isinstance(a, DIAOperator) for a in mg.As)
+    forms = []
+    for lvl, dia in enumerate(mg.As):
+        op = dia_kernel_operator(dia, diag_dtype=dtype)
+        x = torch.from_numpy(np.random.default_rng(lvl).standard_normal(
+            op.n).astype(np.float32)).to(cuda)
+        want = op.plain().matvec(x)
+        _close(op.matvec(x), want)
+        assert op.launches == 1 and op.tiles.seg_vals.dtype == dtype
+        other = op.tiles._replace(split=not op.tiles.split)
+        _close(dia_tiles_spmv_cuda(other, x), want)
+        _close(op.launch_t(x), dia_transpose(op.plain()).matvec(x))
+        assert op.launches == 2 and op.rebuilds == 0
+        forms.append(op.tiles.split)
+    assert forms[0] is False and all(forms[1:])
+
+
+def test_dia_layout_rebuilds_outside_cycles_only(cuda):
+    """Cycles rebuild no K1 layout; a structural zero of Ac made nonzero in
+    place is in the next launch (forward and x's cotangent), after one
+    rebuild."""
+    from gnnla_tpu_torch.models.vcycle import solve
+    from gnnla_tpu_torch.ops.dia import dia_matvec
+
+    plain, fast = _fast(48, cuda)
+    b = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        plain.A.n_rows).astype(np.float32)).to(cuda)
+    solve(fast, b, torch.zeros_like(b), n_cycles=3)
+    assert fast.A.rebuilds == fast.Ac.rebuilds == 0
+    op = fast.Ac
+    k = len(op.offsets) - 1  # the widest offset: zero on most tiles
+    in_range = torch.arange(op.n, device=cuda) + op.offsets[k] < op.n
+    row = int(torch.nonzero((op.diags[k] == 0) & in_range)[0])
+    segs = op.tiles.n_segs
+    with torch.no_grad():
+        op.diags[k, row] = 0.5
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        op.n).astype(np.float32)).to(cuda)
+    y = op.matvec(x)
+    assert op.rebuilds == 1 and op.tiles.n_segs in (segs, segs + 1)
+    _close(y, dia_matvec(op.diags, op.offsets, x))
+    x1 = x.clone().requires_grad_(True)
+    torch.dot(x, op.matvec(x1)).backward()
+    x2 = x.clone().requires_grad_(True)
+    torch.dot(x, dia_matvec(op.diags, op.offsets, x2)).backward()
+    _close(x1.grad, x2.grad)
+    assert op.rebuilds == 1
+
+
+@pytest.mark.parametrize("m,misaligned", [(7, False), (20, False),
+                                          (20, True), (33, True)],
+                         ids=["M7", "M20", "M20-misaligned",
+                              "M33-misaligned"])
+def test_csr_spmm_variants_are_the_csr_order_sum(cuda, m, misaligned):
+    """K3's float4 and scalar variants (M not a multiple of 4, X not
+    16-byte aligned) give the CSR-order sequential sum bit for bit."""
+    from chip_smoke import csr_sequential
+    from gnnla_tpu_torch.ops.stream_op import csr_pair
+
+    _, B, _ = _rcm_csr(50, "cpu")
+    mm, _ = csr_pair(B, cuda, width=B.shape[0])
+    n = B.shape[0]
+    X = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (n, m)).astype(np.float32)).to(cuda)
+    if misaligned:
+        buf = torch.empty(n * m + 1, device=cuda)
+        X = buf[1:].view(n, m).copy_(X)
+        assert X.data_ptr() % 16 != 0
+    y = mm(X)
+    _close(y, mm.plain(X))
+    assert torch.equal(y, csr_sequential(mm, X))
+    assert mm.launches_mm == 1

@@ -106,13 +106,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The raw launchers never run the plain version: only the operator
     wrappers pick it, and only for CPU tensors."""
-    from gnnla_tpu_torch.ops.dia_spmv import dia_spmv_cuda
+    from gnnla_tpu_torch.ops.dia_spmv import dia_tiles, dia_tiles_spmv_cuda
     from gnnla_tpu_torch.ops.stencil_kernel import stencil_cuda
     from gnnla_tpu_torch.ops.stream_spmv import csr_spmv_cuda
 
     x = torch.zeros(4)
     with pytest.raises(ValueError, match="not CUDA"):
-        dia_spmv_cuda(torch.zeros(1, 4), torch.zeros(1, dtype=torch.int32), x)
+        dia_tiles_spmv_cuda(dia_tiles(torch.ones(1, 4), (0,)), x)
     with pytest.raises(ValueError, match="not CUDA"):
         csr_spmv_cuda(torch.zeros(5, dtype=torch.int32),
                       torch.zeros(0, dtype=torch.int32), torch.zeros(0), x, 4)
