@@ -15,7 +15,9 @@ Phases, one JSON line each on stdout:
                (32-row tile, diagonal) in under 80 MB.
   4. kernels — each kernel's wrapper against its plain PyTorch version on
                the card, at the main path's shapes (rtol 1e-5, atol
-               1e-5 * max|y|: the two sum in different orders in f32).
+               1e-5 * max|y|: the two sum in different orders in f32);
+               K2 on P and P^T bitwise the CSR-order mul-then-add
+               (`csr_sequential`).
   5. solve   — 5 cycles of `solve`; the residual must fall every cycle;
                the launch counts must be exactly 11 K1 and 2 K2 launches
                per cycle, and no K1 layout rebuilt; x must match the plain
@@ -39,16 +41,23 @@ The grid path (kernel K4, the fused stencil) on the same 1024^2 operator:
   8. grid_kernels — K4 against its plain version on the card at the grid
                     path's shapes: plain on the 1024 x 512 Ac (one step),
                     affine Jacobi (3 steps) and residual (1 step) on 1024^2,
-                    normalize (10 steps), and bf16-tap Jacobi. rtol 1e-5,
-                    atol 1e-5 * max|y|; normalize n_steps * 64 * 2^-24
-                    (see NORM_ULPS_PER_STEP).
+                    normalize (10 steps), bf16-tap Jacobi, and plain on the
+                    transposed taps (3 steps). rtol 1e-5, atol 1e-5 *
+                    max|y|; normalize n_steps * 64 * 2^-24 (see
+                    NORM_ULPS_PER_STEP). Each call's form, tile and halo:
+                    the 3-step plain and affine calls in the tile form, the
+                    others per step, all but normalize bitwise the plain
+                    version; the tile form (forced on one-step calls)
+                    bitwise too in plain and affine at 1 and 3 steps, f32
+                    and bf16, and an operator with a reach of 40 at 3 steps
+                    in the per-step form.
   9. grid         — 5 `GeometricVCycle` cycles: the residual falls every
-                    cycle; exactly 11 K4 launches per cycle (3 + 1 + 4 + 3);
+                    cycle; exactly 7 K4 launches per cycle (1 + 1 + 4 + 1);
                     x matches the generic cycle on the same alternating
                     setup on the plain COO path (1e-4 of max|x|); a 64^2
                     run matches the port's CPU path.
  10. auto         — 5 `AutoTwoGrid` (stencil) cycles: the residual falls
-                    every cycle; exactly 7 K4 launches per cycle; x matches
+                    every cycle; exactly 3 K4 launches per cycle; x matches
                     phase 5's plain cycle (1e-4 of max|x|).
  11. grid_times   — ms/cycle of both (CUDA events over 20 warm cycles); per
                     K4 shape the flushed and L2-warm times, plain time,
@@ -64,7 +73,10 @@ The stream leg of `AutoTwoGrid` (kernel K2 on a square RCM-ordered A):
                     plain COO operator (rtol 1e-5); 5 cycles: the residual
                     falls every cycle, exactly 7 K2 launches per cycle, x
                     matches the plain cycle (1e-4 of max|x|); ms/cycle,
-                    the K2 row's times and a profile of one cycle.
+                    the K2 row's times and a profile of one cycle. K2 on
+                    A_rcm and A_rcm^T bitwise the CSR-order sum; on a
+                    power-law CSR (rows of 1 to 10,000 nonzeros, long rows
+                    summed by whole blocks) against its plain version.
                     K2's backward: a scalar of matvec and of rmatvec
                     differentiated on the card (one K2 launch forward,
                     one on the other CSR backward) against the plain COO
@@ -112,8 +124,8 @@ The last kernel contracts (K1's backward and bf16 storage, K4's backward):
                     diagonals in the bound).
  19. stencil_grad — `StencilSpMV` at 1 and 3 steps on 1024^2: the x and taps
                     gradients against the plain roll twin's autograd;
-                    exactly n_steps K4 launches for x's cotangent; a
-                    `stencil[plain,T]` row.
+                    exactly 1 K4 launch each way (per step at one step, the
+                    tile form at 3); a `stencil[plain,T]` row.
 The multilevel hierarchies and the Krylov solvers:
  20. multigrid    — `setup_sa_multigrid(A, seed=0)`, `setup_with_dia_multigrid(
                     kernel=True)`: levels, rows, nnz, K, which levels are on
@@ -129,6 +141,13 @@ The multilevel hierarchies and the Krylov solvers:
                     cuSPARSE times (a `dia_spmv[SA<level>]` row each); the
                     classical `setup_multigrid` (pmis) cycles lower the
                     residual.
+ 20b. dia_nonfinite — K1 on x with +inf, -inf and NaN at columns some rows
+                    reach only through a skipped segment (asserted to exist
+                    but on the Laplacian's layouts, whose skipped segments
+                    all lie past the grid): A, Ac, the first split-form SA
+                    level, bf16 Ac, A^T and Ac^T; NaN and inf positions
+                    equal the plain version's, finite entries within rtol,
+                    no layout rebuilt, the layout's state left zeroed.
  21. pcg          — `amg_pcg(n_iters=10, flip_sign=True)` on the fast
                     setup: below plain `cg` at 10 iterations, exact K1/K2
                     launches, x within 1e-4 of the plain setup's; ms per
@@ -177,16 +196,18 @@ from gnnla_tpu_torch.ops.dia_spmv import (DiaKernelOperator,
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stencil import (stencil_apply_plain,
                                          stencil_matvec, stencil_transpose)
-from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
+from gnnla_tpu_torch.ops.stencil_kernel import (TILES, StencilCall,
+                                                make_stencil_jacobi,
                                                 make_stencil_power,
                                                 make_stencil_spmv,
-                                                stencil_args,
-                                                stencil_buffers,
-                                                stencil_launches)
+                                                shifts_tensor, stencil_args,
+                                                stencil_buffers, stencil_cuda,
+                                                stencil_form,
+                                                stencil_launches, tile_form)
 from gnnla_tpu_torch.ops.stream_op import (RectStreamOperator,
                                            StreamOperator, csr_pair)
-from gnnla_tpu_torch.ops.stream_spmv import (csr_spmv_plain, entry_rows,
-                                             rcm_csr)
+from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, csr_spmv_plain,
+                                             entry_rows, rcm_csr)
 from gnnla_tpu_torch.problems import laplacian_2d
 from gnnla_tpu_torch.problems.small_band import small_band_matrix_host
 from gnnla_tpu_torch.training.checkpoints import load_params_npz
@@ -305,16 +326,27 @@ def csr_tensor(op) -> torch.Tensor:
 
 def csr_raw(lib, csr, x: torch.Tensor):
     """(raw launch of K2 on the CsrSpMV `csr` and x, bytes, flops): each
-    input read once, the output written once."""
+    input read once (the CSR, its row blocks, x), the output written
+    once."""
     y = torch.empty(csr.shape[0], device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
+    blocks = csr.row_blocks
 
     def raw():
-        lib.csr_spmv_f32(csr.row_ptr.data_ptr(), csr.cols.data_ptr(),
-                         csr.vals.data_ptr(), csr.shape[0], x.data_ptr(),
-                         y.data_ptr(), stream)
+        _build.check(lib.csr_spmv_f32(
+            csr.row_ptr.data_ptr(), csr.cols.data_ptr(), csr.vals.data_ptr(),
+            csr.shape[0], blocks.data_ptr(), blocks.shape[0] - 1, csr.nnz,
+            x.data_ptr(), y.data_ptr(), stream), "K2 raw")
     r_, c_ = csr.shape
-    return raw, csr.nnz * 8 + (r_ + 1) * 4 + c_ * 4 + r_ * 4, 2 * csr.nnz
+    return raw, (csr.nnz * 8 + (r_ + 1) * 4 + blocks.shape[0] * 4 + c_ * 4
+                 + r_ * 4), 2 * csr.nnz
+
+
+def k2_fields(csr) -> dict:
+    """A K2 row's fields beside its times: the row blocks one CUDA block
+    each takes, and the rows a whole block sums."""
+    return dict(row_blocks=csr.row_blocks.shape[0] - 1,
+                long_rows=csr.long_rows)
 
 
 def dia_raw(lib, tiles, x: torch.Tensor):
@@ -329,6 +361,8 @@ def dia_raw(lib, tiles, x: torch.Tensor):
     def raw():
         _build.check(fn(tiles.seg_ptr.data_ptr(), tiles.seg_off.data_ptr(),
                         tiles.seg_vals.data_ptr(), tiles.n, int(tiles.split),
+                        tiles.offsets.data_ptr(), tiles.offsets.shape[0],
+                        tiles.state.data_ptr() if tiles.repair else None,
                         x.data_ptr(), y.data_ptr(), stream), "K1 raw")
     return (raw, tiles.nbytes + 2 * tiles.n * 4,
             2 * tiles.seg_vals.numel())
@@ -347,11 +381,65 @@ def k1_fields(tiles, k: int, nnz: int) -> dict:
                 split_form=tiles.split)
 
 
+def nonfinite_probe(tiles, n_cols: int, seed: int):
+    """(columns, rows): up to n_cols columns of x, each reached by its row
+    only through a (tile, diagonal) segment the compact layout `tiles`
+    skipped, in range; an inf or NaN there makes the reference's row NaN,
+    and only K1's repair does so on the card. Empty when the layout skips
+    no segment in range (as on the Laplacian, whose skipped segments all
+    lie past the grid's first or last row)."""
+    dev, n = tiles.seg_ptr.device, tiles.n
+    offs = tiles.offsets.long()
+    n_tiles = tiles.seg_ptr.shape[0] - 1
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
+                                   tiles.seg_ptr.diff().long(),
+                                   output_size=tiles.n_segs)
+    stored = torch.zeros(n_tiles, offs.shape[0], dtype=torch.bool,
+                         device=dev)
+    stored[tile, torch.searchsorted(offs, tiles.seg_off.long())] = True
+    lane = torch.arange(32, device=dev)
+    rng = np.random.default_rng(seed)
+    cols, rows = [], []
+    for k in rng.permutation(offs.shape[0]).tolist():
+        off = int(offs[k])
+        r = (torch.nonzero(~stored[:, k])[:, None] * 32 + lane).reshape(-1)
+        r = r[(r < n) & (r + off >= 0) & (r + off < n)]
+        if r.numel():
+            row = int(r[int(rng.integers(r.numel()))])
+            if row + off not in cols:
+                cols.append(row + off)
+                rows.append(row)
+        if len(cols) == n_cols:
+            break
+    return cols, rows
+
+
+def power_law_csr(n: int, seed: int):
+    """A scipy CSR with Zipf row lengths from 1 to 10,000 (one row of each
+    pinned), columns anywhere (distinct in a row), normal values: K2's
+    long rows, summed by whole blocks."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(rng.zipf(1.6, n), 10_000)
+    lens[[7, n // 2]] = [10_000, 1]
+    rows = np.repeat(np.arange(n), lens)
+    cols = rng.integers(0, n, rows.size)
+    long_ = np.flatnonzero(lens > 500)
+    starts = np.concatenate([[0], np.cumsum(lens)])
+    for r in long_:  # distinct columns where duplicates would be many
+        cols[starts[r]:starts[r + 1]] = rng.choice(n, lens[r], replace=False)
+    A = sp.csr_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(n, n))
+    A.sort_indices()
+    return A
+
+
 def csr_sequential(op, X: torch.Tensor) -> torch.Tensor:
     """Y = A X for the CsrSpMV `op`, summed in CSR order with one multiply
     and one add per step (separate PyTorch ops: no fused multiply-add),
     position by position over the rows padded to their longest; a padded
-    position leaves the sum as it is. K3's arithmetic, bit for bit."""
+    position leaves the sum as it is. K3's arithmetic, and K2's on rows
+    of at most 64 nonzeros (X [n, 1]), bit for bit."""
     lens = op.row_ptr.diff().long()
     steps = torch.arange(int(lens.max()), device=X.device)
     live = steps[None, :] < lens[:, None]
@@ -362,6 +450,12 @@ def csr_sequential(op, X: torch.Tensor) -> torch.Tensor:
         acc = torch.where(live[:, p:p + 1],
                           acc + vals[:, p:p + 1] * X[cols[:, p]], acc)
     return acc
+
+
+def form_fields(call) -> dict:
+    """A K4 row's form, tile and halo (`StencilCall.form`)."""
+    f = call.form
+    return dict(form=f.form, tile=f.tile, halo=f.halo, vec=f.vec)
 
 
 def library_call(op, x2d: torch.Tensor, c2d=None):
@@ -446,6 +540,10 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     power = make_stencil_power(A, gs, n_iters=10)
     jac16 = make_stencil_jacobi(A, gs, omega=0.7, n_iters=3, diag=alt.diag,
                                 tap_dtype=torch.bfloat16)
+    # the 3-step SpMV's x cotangent: plain mode on the transposed taps
+    sp3 = make_stencil_spmv(A, gs, 3)
+    _, planes_t = stencil_transpose(sp3.shifts, sp3.taps)
+    spmv_t = StencilCall(sp3.shifts_t, planes_t.contiguous(), 3, "plain")
     shapes = {  # row -> (K4 call, x, c, operator of the one-call library
         #        yardstick); the first three are the geometric cycle's own
         "Ac_plain": (geo._ac_call, x_c, None, alt.Ac),
@@ -453,6 +551,7 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
         "residual_affine": (geo._res._call, x_f, c_f, A),
         "power_normalize": (power._call, x_f, None, None),
         "jacobi_affine_bf16": (jac16._call, x_f, c_f, None),
+        "plain_3step_T": (spmv_t, x_f, None, None),
     }
     errs, outs = {}, {}
     for key, (call, xin, cin, _) in shapes.items():
@@ -465,10 +564,54 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
         errs[key] = dict(compare(got, want, key, rtol), rtol=rtol,
                          mode=call.mode, n_steps=call.n_steps,
                          tap_dtype=str(call.taps.dtype),
-                         K=call.taps.shape[0],
+                         K=call.taps.shape[0], **form_fields(call),
                          bitwise_equal=bool(torch.equal(got, want)))
+        # at 1024^2 the multi-step plain and affine calls run every step
+        # in one launch (the tile form), the others per step
+        require(call.form.form == ("tile" if call.mode != "normalize"
+                                   and call.n_steps > 1 else "step"),
+                (key, call.form))
+        if call.mode != "normalize":  # rounded like the plain version
+            require(errs[key]["bitwise_equal"], (key, errs[key]))
+    # the tile form bitwise in plain and affine mode, at 1 and 3 steps, f32
+    # and bf16 (forced on the one-step calls, which run per step); a reach
+    # of 40 at 3 steps takes the per-step form
+    reach40 = [(0, 0), (1, 0), (N_GRID - 1, 0), (40, 3), (N_GRID - 40, 1)]
+    more = {  # name -> (taps, shifts, x, c, n_steps, mode)
+        "plain_1step_f32": (ac_taps, geo._ac_call.shifts, x_c, None, 1,
+                            "plain"),
+        "plain_1step_bf16": (ac_taps.to(torch.bfloat16),
+                             geo._ac_call.shifts, x_c, None, 1, "plain"),
+        "plain_3step_bf16": (spmv_t.taps.to(torch.bfloat16), spmv_t.shifts,
+                             x_f, None, 3, "plain"),
+        "affine_1step_f32": (geo._res.taps, geo._res._call.shifts, x_f, c_f,
+                             1, "affine"),
+        "affine_1step_bf16": (geo._res.taps.to(torch.bfloat16),
+                              geo._res._call.shifts, x_f, c_f, 1, "affine"),
+        "affine_3step_bf16": (jac16.taps, jac16._call.shifts, x_f, c_f, 3,
+                              "affine"),
+        "reach40_plain_3step": (torch.from_numpy(gen.uniform(
+            -0.3, 0.3, (5,) + gs).astype(np.float32)).to(dev), reach40, x_f,
+            None, 3, "plain"),
+    }
+    checks = {}
+    for key, (taps, shifts, xin, cin, n_steps, mode) in more.items():
+        grid = tuple(taps.shape[1:])
+        form = (stencil_form(shifts, grid, n_steps, mode, taps.dtype)
+                if key.startswith("reach") else
+                tile_form(shifts, grid, n_steps, taps.dtype, TILES[0]))
+        got = stencil_cuda(taps.contiguous(), shifts_tensor(shifts), xin,
+                           n_steps, mode, cin, form)
+        want = stencil_apply_plain(taps, shifts, xin, n_steps, mode, cin)
+        checks[key] = dict(bitwise_equal=bool(torch.equal(got, want)),
+                           form=form.form, tile=form.tile, halo=form.halo,
+                           vec=form.vec)
+        require(checks[key]["bitwise_equal"], (key, checks[key]))
+        require(form.form == ("step" if key.startswith("reach") else "tile"),
+                (key, form))
+    del more
     emit(dict(phase="grid_kernels", atol="rtol * max|y|",
-              results=list(errs.values())))
+              results=list(errs.values()), tile_form_checks=checks))
 
     # ------------------------------------------------------------ grid
     x = torch.zeros(n, device=dev)
@@ -485,10 +628,12 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
                 "jacobi_affine": geo._pre._call.launches,
                 "residual_affine": geo._res._call.launches}
     require(all(r1 < r0 for r0, r1 in zip(res, res[1:])), res)
-    want_launches = {"Ac_plain": 4 * N_CYCLES, "jacobi_affine": 6 * N_CYCLES,
+    # one launch per call in the tile form: 1 pre + 1 residual + 4 Ac + 1
+    # post per cycle
+    want_launches = {"Ac_plain": 4 * N_CYCLES, "jacobi_affine": 2 * N_CYCLES,
                      "residual_affine": N_CYCLES}
     require(launches == want_launches, (launches, want_launches))
-    require(sum(c.launches for c in calls) == 11 * N_CYCLES, launches)
+    require(sum(c.launches for c in calls) == 7 * N_CYCLES, launches)
     require(x.shape == (n,) and bool(torch.isfinite(x).all()),
             "x must be finite, of shape [n]")
     x_gen = solve(alt, b, torch.zeros(n, device=dev), n_cycles=N_CYCLES)
@@ -529,7 +674,7 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     a_launches = {"jacobi_affine": sv._pre._call.launches,
                   "residual_affine": sv._res._call.launches}
     require(all(r1 < r0 for r0, r1 in zip(res_a, res_a[1:])), res_a)
-    require(a_launches == {"jacobi_affine": 6 * N_CYCLES,
+    require(a_launches == {"jacobi_affine": 2 * N_CYCLES,
                            "residual_affine": N_CYCLES}, a_launches)
     require(bool(torch.isfinite(x).all()), "auto x must be finite")
     rel_a = float((x - x_plain).abs().max() / x_plain.abs().max())
@@ -552,12 +697,12 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     rows, off_path, warm, lib_errs, k4_ms_cycle = [], [], {}, {}, 0.0
     for key, (call, xin, cin, lib_op) in shapes.items():
         taps = call.taps
-        bufs = stencil_buffers(xin, call.n_steps, call.mode)
-        args = stencil_args(taps, call.shifts_dev, xin, call.n_steps,
-                            call.mode, cin, *bufs)
+        bufs = stencil_buffers(xin, call.n_steps, call.mode, call.form)
+        args = stencil_args(taps, call.shifts_host, xin, call.n_steps,
+                            call.mode, cin, *bufs, call.form)
 
         def raw(args=args):
-            lib.stencil_f32(*args, stream)
+            _build.check(lib.stencil_f32(*args, stream), "K4 raw")
         k, pts = taps.shape[0], xin.numel()
         # each input read once, the output written once per fused call
         bytes_moved = (k * taps.element_size()
@@ -578,8 +723,9 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
             max_abs_err=errs[key]["max_abs_err"],
             ms=cuda_ms_cold(raw, 20, flush),
             plain_ms=cuda_ms_cold(lambda: call.plain(xin, cin), 5, flush),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        per_call = stencil_launches(call.mode, call.n_steps)
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            **form_fields(call))
+        per_call = stencil_launches(call.mode, call.n_steps, call.form.form)
         # back to back, L2 warm: the raw launch (median of 5 windows) and
         # the wrapper; the profiler's device time of one call, which no
         # host delay can inflate
@@ -643,6 +789,23 @@ def stream_path(A, flush, smi) -> list:
             "A_rcm_T": compare(S.bwd(xk), S.bwd.plain(xk), "A_rcm_T"),
             "matvec": compare(S.matvec(xr), A_p.matvec(xr), "matvec"),
             "rmatvec": compare(S.rmatvec(xr), A_p.rmatvec(xr), "rmatvec")}
+    # K2 sums each row in CSR order, a product then an add: bitwise
+    for key, csr in (("A_rcm", S.fwd), ("A_rcm_T", S.bwd)):
+        errs[key]["bitwise_csr_order"] = bool(torch.equal(
+            csr(xk), csr_sequential(csr, xk[:, None])[:, 0]))
+        require(errs[key]["bitwise_csr_order"], (key, errs[key]))
+    # long rows (a whole block sums each): a power-law pattern, rows of 1
+    # to 10,000 nonzeros, against the plain version
+    pl = CsrSpMV(power_law_csr(100_000, 31), device=dev)
+    xp = torch.from_numpy(np.random.default_rng(37).standard_normal(
+        pl.shape[1]).astype(np.float32)).to(dev)
+    lens = pl.row_ptr.diff()
+    power_law = dict(compare(pl(xp), pl.plain(xp), "K2 on a power-law CSR"),
+                     rows=pl.shape[0], nnz=pl.nnz, **k2_fields(pl),
+                     min_row=int(lens.min()), max_row=int(lens.max()))
+    require(power_law["long_rows"] > 0 and power_law["max_row"] == 10_000
+            and power_law["min_row"] == 1, power_law)
+    del pl, xp, lens
 
     b = torch.from_numpy(
         np.random.default_rng(3).standard_normal(n).astype(np.float32)
@@ -724,10 +887,12 @@ def stream_path(A, flush, smi) -> list:
             ms=cuda_ms_cold(raw, 20, flush),
             plain_ms=cuda_ms_cold(lambda: csr.plain(vin), 5, flush),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=cuda_ms_cold(lambda: lib_mat @ vin, 20, flush)))
+            library_ms=cuda_ms_cold(lambda: lib_mat @ vin, 20, flush),
+            **k2_fields(csr)))
     emit(dict(phase="stream", setup_twogrid_s=t_setup, auto_build_s=t_auto,
               layout=auto.layout, why=auto.why, n=n, nnz=S.nnz,
-              results=list(errs.values()), cycles=N_CYCLES,
+              results=list(errs.values()), power_law=power_law,
+              cycles=N_CYCLES,
               residual_norms=res, launches=launches,
               rel_err_vs_plain_cycle=rel, ms_per_cycle=ms_cycle,
               ms_per_cycle_plain_path=ms_plain,
@@ -1148,7 +1313,10 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
         torch.cuda.synchronize()
         launches = dict(forward=sp_._call.launches,
                         x_cotangent=sp_.launches_t)
-        require(launches == dict(forward=n_steps, x_cotangent=n_steps),
+        # one launch each way: per step at one step, the tile form at 3
+        require(sp_._call.form.form == sp_.form_t.form == (
+            "tile" if n_steps > 1 else "step"), (sp_._call.form, sp_.form_t))
+        require(launches == dict(forward=1, x_cotangent=1),
                 (n_steps, launches))
         gx, gt = x1.grad, sp_.taps.grad
         sp_.taps.requires_grad_(False)
@@ -1164,12 +1332,12 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
         # x's cotangent alone: K4 on the transposed taps
         _, planes_t = stencil_transpose(sp_.shifts, sp_.taps.float())
         planes_t = planes_t.contiguous()
-        bufs = stencil_buffers(w, n_steps, "plain")
-        args = stencil_args(planes_t, sp_._shifts_t_dev, w, n_steps,
-                            "plain", None, *bufs)
+        bufs = stencil_buffers(w, n_steps, "plain", sp_.form_t)
+        args = stencil_args(planes_t, sp_._shifts_t_host, w, n_steps,
+                            "plain", None, *bufs, sp_.form_t)
 
         def raw(args=args):
-            lib.stencil_f32(*args, stream)
+            _build.check(lib.stencil_f32(*args, stream), "K4 raw")
         k = planes_t.shape[0]
         bound_ms, bound_by = bound((k * 4 + 8) * A.n_rows,
                                    n_steps * A.n_rows * 2 * k)
@@ -1190,7 +1358,8 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
         st_rows.append(dict(max_abs_err=errs["x_grad"]["max_abs_err"],
                             launches=launches["x_cotangent"], ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms))
+                            bound_by=bound_by, library_ms=library_ms,
+                            form=sp_.form_t))
     emit(dict(phase="stencil_grad", K=len(sp_.shifts), **st_out,
               nvidia_smi=smi))
     one = st_rows[0]  # the row is the one-step call; launches: both runs
@@ -1198,8 +1367,69 @@ def kernel_grads(A, plain, fast, flush, smi) -> list:
         name="stencil[plain,T]", route="cuda", source=K4_ROW[0],
         replaces=K4_ROW[1], launches=sum(r["launches"] for r in st_rows),
         **{k: one[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                               "bound_by", "library_ms")}))
+                               "bound_by", "library_ms")},
+        form=one["form"].form, tile=one["form"].tile, halo=one["form"].halo,
+        vec=one["form"].vec))
     return rows_out
+
+
+def dia_nonfinite(fast, on_k1, smi) -> None:
+    """K1 on x with +inf, -inf and NaN at columns that some rows reach
+    only through a skipped segment: the fast setup's A and Ac, the first
+    SA level on the split form, Ac with bf16 diagonals, and the transposed
+    layouts of A and Ac (x's cotangent). NaN and inf positions must equal
+    the plain version's, the finite entries agree within rtol, no layout
+    is rebuilt and each layout's state is left zeroed."""
+    split_lvl = min(lvl for lvl, a in on_k1.items() if a.tiles.split)
+    ac16 = dia_kernel_operator(fast.Ac.plain(), diag_dtype=torch.bfloat16)
+    cases = {  # name -> (operator, its layout, transposed?)
+        "A": (fast.A, fast.A.tiles, False),
+        "Ac": (fast.Ac, fast.Ac.tiles, False),
+        f"SA{split_lvl}_split": (on_k1[split_lvl], on_k1[split_lvl].tiles,
+                                 False),
+        "Ac_bf16": (ac16, ac16.tiles, False),
+        "At": (fast.A, fast.A.tiles_t, True),
+        "Act": (fast.Ac, fast.Ac.tiles_t, True),
+    }
+    out = {}
+    for seed, (name, (op, tiles, transposed)) in enumerate(cases.items()):
+        cols, rows = nonfinite_probe(tiles, 3, seed)
+        # the Laplacian's layouts skip segments only past its first and
+        # last grid rows: no column hides there, and they take no ticket
+        require(bool(cols) == (name not in ("A", "At")) == tiles.repair,
+                (name, cols, tiles.repair))
+        gen = np.random.default_rng(100 + seed)
+        x = torch.from_numpy(gen.standard_normal(op.n).astype(
+            np.float32)).to(tiles.seg_ptr.device)
+        if not cols:
+            cols = gen.choice(op.n, 3, replace=False).tolist()
+        x[cols] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                               device=x.device)
+        rebuilds, launches = op.rebuilds, op.launches
+        got = op.launch_t(x) if transposed else op.matvec(x)
+        plain = dia_transpose(op.plain()) if transposed else op.plain()
+        want = plain.matvec(x)
+        del plain
+        torch.cuda.synchronize()
+        masks = {test.__name__: bool(torch.equal(test(got), test(want)))
+                 for test in (torch.isnan, torch.isposinf, torch.isneginf)}
+        fin = torch.isfinite(want)
+        entry = dict(K=len(op.offsets), split_form=tiles.split,
+                     repair=tiles.repair,
+                     diag_dtype=str(tiles.seg_vals.dtype),
+                     hidden_rows=len(rows), masks_equal=masks,
+                     nan_rows=int(torch.isnan(want).sum()),
+                     inf_rows=int(torch.isinf(want).sum()),
+                     finite=compare(got[fin], want[fin], f"{name} finite"),
+                     launches=op.launches - launches,
+                     rebuilds=op.rebuilds - rebuilds,
+                     state=tiles.state.tolist())
+        require(all(masks.values()) and entry["launches"] == 1
+                and entry["rebuilds"] == 0 and entry["state"] == [0, 0]
+                and bool(torch.isnan(want[rows]).all()), (name, entry))
+        out[name] = entry
+    del ac16
+    emit(dict(phase="dia_nonfinite", rtol=RTOL, **out, nvidia_smi=smi))
 
 
 def jax_bench_reference() -> dict:
@@ -1362,6 +1592,8 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
                              residual_norms=res_cl),
               nvidia_smi=smi))
 
+    dia_nonfinite(fast, on_k1, smi)
+
     # --------------------------------------------------------------- pcg
     counted = dict(A=fast.A, Ac=fast.Ac, P=fast.P.fwd, Pt=fast.P.bwd)
     for op in counted.values():
@@ -1500,6 +1732,10 @@ def main() -> int:
         want = ref(x)
         torch.cuda.synchronize()
         errs[key] = compare(got, want, key)
+        if key in ("P", "Pt"):  # K2: the CSR-order mul-then-add, bitwise
+            errs[key]["bitwise_csr_order"] = bool(torch.equal(
+                got, csr_sequential(kern, x[:, None])[:, 0]))
+            require(errs[key]["bitwise_csr_order"], (key, errs[key]))
     emit(dict(phase="kernels", rtol=RTOL, atol=f"{RTOL} * max|y|",
               results=list(errs.values())))
 
@@ -1574,6 +1810,7 @@ def main() -> int:
             raw, bytes_moved, flops = csr_raw(lib, kern, xin)
             kname, src, rep = K2_ROW
             lib_mat = csr_tensor(kern)
+            extra = k2_fields(kern)
         lib_errs[key] = compare(lib_mat @ xin, kern(xin),
                                 f"cuSPARSE yardstick of {key}")
         bound_ms, bound_by = bound(bytes_moved, flops)

@@ -109,14 +109,14 @@ def load(force: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.dia_spmv_f32, lib.dia_spmv_bf16):
         fn.restype = ci
-        fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
+        fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp, vp, vp]
     lib.csr_spmv_f32.restype = ci
-    lib.csr_spmv_f32.argtypes = [vp, vp, vp, ci, vp, vp, vp]
+    lib.csr_spmv_f32.argtypes = [vp, vp, vp, ci, vp, ci, ci, vp, vp, vp]
     lib.csr_spmm_f32.restype = ci
     lib.csr_spmm_f32.argtypes = [vp, vp, vp, ci, ci, vp, vp, vp]
     lib.stencil_f32.restype = ci
     lib.stencil_f32.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp,
-                                ci, ci, ci, vp]
+                                ci, ci, ci, ci, ci, ci, vp]
     _info.update(path=lib_path, built=built, ptxas=report,
                  seconds=time.perf_counter() - t0)
     _lib = lib

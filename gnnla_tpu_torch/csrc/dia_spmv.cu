@@ -42,14 +42,36 @@
 //     from n once, when the layout is built.
 //   * Accumulation is f32 in segment order, which is the k order of the
 //     plain PyTorch version (ops/dia.py::dia_matvec); the bounds guard
-//     0 <= i + off < n replaces the TPU's zeroed halo. A skipped segment
-//     holds exact zeros, which add nothing to an FMA for finite x, so the
+//     0 <= i + off < n replaces the TPU's zeroed halo. For finite x a
+//     skipped segment's exact zeros add nothing to an FMA, so the
 //     warp-per-tile form gives the dense walk's bits; the split form
 //     differs from it only by the f32 reassociation of 8 partial sums.
 //     A bf16 value is widened to f32 exactly before its FMA (JAX's bf16 *
 //     f32 promotion), so on bf16-exact values (the integer Laplacian)
 //     both storages give the same bits. Kernel and plain version agree to
 //     f32 rounding, not bitwise: the kernel fuses each product and add.
+//   * Non-finite x. The reference multiplies every stored diagonal, so a
+//     zero there times an inf or NaN of x makes its row NaN; a skipped
+//     segment would hide that product. The rule this kernel keeps: row r
+//     is NaN whenever a diagonal k has 0 <= r + off_k < n, x[r + off_k]
+//     not finite and diags[k, r] == 0 (a skipped segment counts as zero).
+//     Rows that reach a non-finite x through a stored value already get
+//     the reference's inf or NaN: such sums do not depend on their order.
+//     Each lane checks its own x[i] (K1 is square, so the lanes cover all
+//     of x; the load hits L1 where the tile keeps offset 0), and a warp
+//     vote raises a flag in `state` only when one is not finite. Each
+//     block then takes a ticket; the last block to finish reads the flag
+//     and, in the rare case it is set, walks x's non-finite entries and
+//     writes NaN into every row that the rule names, finding whether
+//     (tile(r), k) was skipped by a binary search of the tile's offsets.
+//     It then resets `state` for the next launch. On finite x this costs
+//     one load, one vote and one ticket per block: no host sync and no
+//     extra launch. The rare path costs O(non-finite entries x K) in one
+//     block. `state` (flag, ticket) belongs to the layout, so one layout
+//     must not run on two streams at once. A layout that skips no segment
+//     a row reaches in range (the Laplacian's: it skips only diagonals
+//     past its first and last grid rows) can need no repair; its caller
+//     passes no `state`, and the kernel takes no ticket.
 //
 // The gradient needs no other kernel: x's cotangent is this kernel on the
 // compact layout of the transposed diagonals (ops/dia.py::dia_transpose),
@@ -109,81 +131,160 @@ __device__ __forceinline__ float walk(const int* __restrict__ seg_off,
   return acc;
 }
 
+// The layout the kernels read, with what the non-finite repair needs: the
+// operator's K dense offsets and the layout's int32 state (flag, ticket).
 template <typename D>
-__global__ void __launch_bounds__(kWarps * kTile)
-dia_tiles_kernel(const int* __restrict__ seg_ptr,
-                 const int* __restrict__ seg_off,
-                 const D* __restrict__ seg_vals, int n, int n_tiles,
-                 const float* __restrict__ x, float* __restrict__ y) {
-  const int lane = threadIdx.x & (kTile - 1);
-  const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (tile >= n_tiles) return;  // whole warps leave together
-  const int i = tile * kTile + lane;
-  const float acc = walk<D>(seg_off, seg_vals, __ldg(seg_ptr + tile),
-                            __ldg(seg_ptr + tile + 1), i, n, x, lane);
-  if (i < n) y[i] = acc;
+struct Layout {
+  const int* seg_ptr;
+  const int* seg_off;
+  const D* seg_vals;
+  const int* offsets;
+  int* state;
+  int n, K;
+};
+
+// The last block's repair: NaN into every row r = j - off_k that reaches a
+// non-finite x[j] through a segment the tile skipped.
+template <typename D>
+__device__ void repair_nonfinite(const Layout<D>& L,
+                                 const float* __restrict__ x,
+                                 float* __restrict__ y) {
+  const float nan = __int_as_float(0x7fffffff);
+  for (int j = threadIdx.x; j < L.n; j += blockDim.x) {
+    if (isfinite(__ldg(x + j))) continue;
+    for (int k = 0; k < L.K; ++k) {
+      const int off = __ldg(L.offsets + k);
+      const int64_t r = (int64_t)j - off;
+      if (r < 0 || r >= L.n) continue;
+      const int t = (int)(r / kTile);
+      const int end = __ldg(L.seg_ptr + t + 1);
+      int lo = __ldg(L.seg_ptr + t), hi = end;
+      while (lo < hi) {  // the first segment of the tile at >= off
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(L.seg_off + mid) < off) lo = mid + 1; else hi = mid;
+      }
+      if (lo == end || __ldg(L.seg_off + lo) != off) y[r] = nan;
+    }
+  }
 }
 
+// Every thread of the block calls it once, after the block's y writes,
+// when the layout has a `state`. `bad`: this thread's row i < n has a
+// non-finite x[i]. Each thread fences its own writes before the block's
+// ticket (a single fence by thread 0 after the barrier measured slower
+// on the H100: it waits for the block's writes one after the other).
 template <typename D>
+__device__ __forceinline__ void finish(bool bad, const Layout<D>& L,
+                                       const float* __restrict__ x,
+                                       float* __restrict__ y) {
+  __shared__ int s_last;
+  if (__any_sync(kFull, bad) && (threadIdx.x & (kTile - 1)) == 0)
+    atomicOr(L.state, 1);
+  __threadfence();  // this thread's y and flag, before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(L.state + 1, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;  // the whole block
+  __threadfence();      // every other block's y and flag are visible
+  if (*(volatile int*)L.state) repair_nonfinite<D>(L, x, y);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    L.state[0] = 0;
+    L.state[1] = 0;
+  }
+}
+
+// REPAIR: the layout has a `state` (the host picks the instantiation, so
+// a layout that needs no repair runs no epilogue at all).
+template <typename D, bool REPAIR>
+__global__ void __launch_bounds__(kWarps * kTile)
+dia_tiles_kernel(Layout<D> L, int n_tiles, const float* __restrict__ x,
+                 float* __restrict__ y) {
+  const int lane = threadIdx.x & (kTile - 1);
+  const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int i = tile * kTile + lane;
+  if (tile < n_tiles) {  // whole warps
+    const float acc = walk<D>(L.seg_off, L.seg_vals, __ldg(L.seg_ptr + tile),
+                              __ldg(L.seg_ptr + tile + 1), i, L.n, x, lane);
+    if (i < L.n) y[i] = acc;
+  }
+  if (REPAIR) finish<D>(i < L.n && !isfinite(__ldg(x + i)), L, x, y);
+}
+
+template <typename D, bool REPAIR>
 __global__ void __launch_bounds__(kSplitWarps * kTile)
-dia_tiles_split_kernel(const int* __restrict__ seg_ptr,
-                       const int* __restrict__ seg_off,
-                       const D* __restrict__ seg_vals, int n,
-                       const float* __restrict__ x, float* __restrict__ y) {
+dia_tiles_split_kernel(Layout<D> L, const float* __restrict__ x,
+                       float* __restrict__ y) {
   __shared__ float part[kSplitWarps][kTile];
   const int lane = threadIdx.x & (kTile - 1);
   const int warp = threadIdx.x >> 5;
   const int tile = blockIdx.x;
   const int i = tile * kTile + lane;
-  const int start = __ldg(seg_ptr + tile);
-  const int end = __ldg(seg_ptr + tile + 1);
+  const int start = __ldg(L.seg_ptr + tile);
+  const int end = __ldg(L.seg_ptr + tile + 1);
   const int run = (end - start + kSplitWarps - 1) / kSplitWarps;
   const int s0 = min(end, start + warp * run);
   const int s1 = min(end, s0 + run);
-  part[warp][lane] = walk<D>(seg_off, seg_vals, s0, s1, i, n, x, lane);
+  part[warp][lane] = walk<D>(L.seg_off, L.seg_vals, s0, s1, i, L.n, x, lane);
   __syncthreads();
   if (warp == 0) {
     float acc = part[0][lane];
 #pragma unroll
     for (int w = 1; w < kSplitWarps; ++w) acc += part[w][lane];
-    if (i < n) y[i] = acc;
+    if (i < L.n) y[i] = acc;
   }
+  if (REPAIR)
+    finish<D>(warp == 0 && i < L.n && !isfinite(__ldg(x + i)), L, x, y);
 }
 
 template <typename D>
 int launch(const void* seg_ptr, const void* seg_off, const void* seg_vals,
-           int n, int split, const void* x, void* y, void* stream) {
+           int n, int split, const void* offsets, int K, void* state,
+           const void* x, void* y, void* stream) {
   if (n <= 0) return 0;
+  if (state && (K < 1 || !offsets)) return (int)cudaErrorInvalidValue;
   const int n_tiles = (n - 1) / kTile + 1;
   cudaStream_t s = (cudaStream_t)stream;
-  if (split) {
-    dia_tiles_split_kernel<D><<<n_tiles, kSplitWarps * kTile, 0, s>>>(
-        (const int*)seg_ptr, (const int*)seg_off, (const D*)seg_vals, n,
-        (const float*)x, (float*)y);
-  } else {
-    dia_tiles_kernel<D><<<(n_tiles - 1) / kWarps + 1, kWarps * kTile, 0,
-                          s>>>(
-        (const int*)seg_ptr, (const int*)seg_off, (const D*)seg_vals, n,
-        n_tiles, (const float*)x, (float*)y);
-  }
+  const Layout<D> L{(const int*)seg_ptr, (const int*)seg_off,
+                    (const D*)seg_vals, (const int*)offsets, (int*)state, n,
+                    K};
+  const int blocks = split ? n_tiles : (n_tiles - 1) / kWarps + 1;
+  const int threads = (split ? kSplitWarps : kWarps) * kTile;
+  const float* xf = (const float*)x;
+  float* yf = (float*)y;
+  if (split && state)
+    dia_tiles_split_kernel<D, true><<<blocks, threads, 0, s>>>(L, xf, yf);
+  else if (split)
+    dia_tiles_split_kernel<D, false><<<blocks, threads, 0, s>>>(L, xf, yf);
+  else if (state)
+    dia_tiles_kernel<D, true><<<blocks, threads, 0, s>>>(L, n_tiles, xf, yf);
+  else
+    dia_tiles_kernel<D, false><<<blocks, threads, 0, s>>>(L, n_tiles, xf, yf);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // seg_ptr [n_tiles+1] int32, seg_off [n_segs] int32, seg_vals [n_segs, 32]
-// (f32 or bf16), x [n] f32, y [n] f32, all on the current device, with
-// n_tiles = ceil(n / 32); `split` != 0 takes the split form; `stream` is a
+// (f32 or bf16), offsets [K] int32 (the operator's sorted dense offsets),
+// state [2] int32 (zero before the first launch; each launch leaves it
+// zero) or null for a layout that skips no segment in range (no repair),
+// x [n] f32, y [n] f32, all on the current device, with n_tiles =
+// ceil(n / 32); `split` != 0 takes the split form; `stream` is a
 // cudaStream_t. Each returns cudaGetLastError().
 extern "C" int dia_spmv_f32(const void* seg_ptr, const void* seg_off,
                             const void* seg_vals, int n, int split,
+                            const void* offsets, int K, void* state,
                             const void* x, void* y, void* stream) {
-  return launch<float>(seg_ptr, seg_off, seg_vals, n, split, x, y, stream);
+  return launch<float>(seg_ptr, seg_off, seg_vals, n, split, offsets, K,
+                       state, x, y, stream);
 }
 
 extern "C" int dia_spmv_bf16(const void* seg_ptr, const void* seg_off,
                              const void* seg_vals, int n, int split,
+                             const void* offsets, int K, void* state,
                              const void* x, void* y, void* stream) {
-  return launch<__nv_bfloat16>(seg_ptr, seg_off, seg_vals, n, split, x, y,
-                               stream);
+  return launch<__nv_bfloat16>(seg_ptr, seg_off, seg_vals, n, split, offsets,
+                               K, state, x, y, stream);
 }

@@ -31,6 +31,16 @@ construction as `PallasDiaSpMV.__init__` builds them), the diagonals'
 cotangent ybar[i] * x[i + off_k] in plain array ops over the whole [K, n]
 band (zero where i + off_k leaves [0, n)), cast to the stored dtype.
 
+Non-finite x gives the reference's result: the reference multiplies every
+stored diagonal, zeros included, so a row that reaches an inf or NaN of x
+only through a skipped (tile, diagonal) segment is NaN there too. The
+kernel finds such x on the fly and its last block repairs those rows
+(`csrc/dia_spmv.cu`); for that the layout keeps the operator's dense
+offsets and a small int32 `state` (flag, ticket) that each launch leaves
+zeroed. So one layout must not run on two CUDA streams at once. A layout
+that skips no segment a row reaches in range (`DiaTiles.repair` False,
+as the Laplacian's) can need no repair, and its launches take no ticket.
+
 The TPU's tile fitting (`fit_dia_tile`) and halo-padded layout have no
 counterpart: they exist for the TPU's VMEM. The kernel takes plain [n]
 vectors; its bounds guard replaces the halo padding.
@@ -62,12 +72,19 @@ class DiaTiles(NamedTuple):
     segments seg_ptr[t] .. seg_ptr[t+1]-1, each one diagonal (offset
     seg_off[s], increasing within a tile) with a nonzero value in the
     tile's rows, its 32 values in seg_vals[s] (zero past row n). `split`
-    picks the kernel's split form, from n alone."""
+    picks the kernel's split form, from n alone. `offsets` are the
+    operator's K dense offsets and `state` the kernel's flag and ticket
+    for non-finite x (see the module doc); `repair` says whether the
+    layout skips a segment that a row reaches in range, the only case in
+    which the kernel needs them."""
     seg_ptr: torch.Tensor   # [n_tiles + 1] int32
     seg_off: torch.Tensor   # [n_segs] int32
     seg_vals: torch.Tensor  # [n_segs, TILE] f32 or bf16
     n: int
     split: bool
+    offsets: torch.Tensor   # [K] int32
+    state: torch.Tensor     # [2] int32, zero between launches
+    repair: bool
 
     @property
     def n_segs(self) -> int:
@@ -101,13 +118,20 @@ def dia_tiles(diags: torch.Tensor,
         _require(tile.shape[0] < 2 ** 31, "more segments than int32 holds")
         seg_ptr = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
         torch.cumsum(mask.sum(1), 0, out=seg_ptr[1:])
-        seg_off = torch.as_tensor(offsets, device=dev).to(torch.int32)[kk]
+        offs = torch.as_tensor(offsets, device=dev).to(torch.int32)
+        seg_off = offs[kk]
+        # a skipped (tile, k) that one of the tile's rows reaches in range
+        lo = torch.arange(n_tiles, device=dev)[:, None] * TILE
+        hi = (lo + TILE - 1).clamp_(max=n - 1)
+        off = offs.long()[None, :]
+        repair = bool((~mask & (hi + off >= 0) & (lo + off < n)).any())
         rows = tile[:, None] * TILE + torch.arange(TILE, device=dev)
         inside = rows < n
         flat = kk[:, None] * n + rows.clamp_(max=max(n - 1, 0))
         seg_vals = diags.reshape(-1)[flat].masked_fill_(~inside, 0)
     return DiaTiles(seg_ptr.to(torch.int32), seg_off.contiguous(), seg_vals,
-                    n, n_tiles < SPLIT_TILES)
+                    n, n_tiles < SPLIT_TILES, offs.contiguous(),
+                    torch.zeros(2, dtype=torch.int32, device=dev), repair)
 
 
 def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
@@ -115,12 +139,16 @@ def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
     and x [n] f32, all contiguous on one CUDA device."""
     _require(x.device.type == "cuda", f"x lies on {x.device}, not CUDA")
     ptr, off, vals = tiles.seg_ptr, tiles.seg_off, tiles.seg_vals
-    _require(all(t.device == x.device for t in (ptr, off, vals)),
+    offs, state = tiles.offsets, tiles.state
+    _require(all(t.device == x.device for t in (ptr, off, vals, offs, state)),
              "the layout and x must share one device")
     _require(vals.dtype in DIAG_DTYPES and x.dtype == torch.float32,
              "diagonal values must be float32 or bfloat16 and x float32")
-    _require(ptr.dtype == torch.int32 and off.dtype == torch.int32,
+    _require(all(t.dtype == torch.int32 for t in (ptr, off, offs, state)),
              "segment pointers and offsets must be int32")
+    _require(offs.ndim == 1 and offs.shape[0] >= 1 and state.shape == (2,),
+             f"offsets {tuple(offs.shape)} and state {tuple(state.shape)}: "
+             "[K >= 1] and [2] expected")
     n = tiles.n
     _require(x.ndim == 1 and x.shape[0] == n
              and ptr.shape == (-(-n // TILE) + 1,)
@@ -129,7 +157,7 @@ def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
              f"{tuple(off.shape)}, seg_vals {tuple(vals.shape)}, x "
              f"{tuple(x.shape)} disagree with n={n}")
     _require(n < 2 ** 31 - TILE, f"n={n} exceeds the kernel's int32 rows")
-    _require(all(t.is_contiguous() for t in (ptr, off, vals, x)),
+    _require(all(t.is_contiguous() for t in (ptr, off, vals, offs, x)),
              "inputs must be contiguous")
     y = torch.empty_like(x)
     lib = _build.load()
@@ -139,8 +167,9 @@ def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _build.check(fn(ptr.data_ptr(), off.data_ptr(), vals.data_ptr(), n,
-                        int(tiles.split), x.data_ptr(), y.data_ptr(),
-                        stream), name)
+                        int(tiles.split), offs.data_ptr(), offs.shape[0],
+                        state.data_ptr() if tiles.repair else None,
+                        x.data_ptr(), y.data_ptr(), stream), name)
     return y
 
 

@@ -12,9 +12,10 @@ package builds a transposed pack. The TPU's multi-RHS relayout ([t, M*8,
 [n, M] row-major block, in the operator's (kernel) order.
 
   * `CsrSpMV`              — the wrapper of both: a CSR held on one
-                             device; calling it on x [n] launches K2, on
-                             X [n, M] K3, for CUDA tensors, and runs the
-                             plain version only for CPU tensors.
+                             device, with K2's row blocks; calling it on
+                             x [n] launches K2, on X [n, M] K3, for CUDA
+                             tensors, and runs the plain version only for
+                             CPU tensors.
                              Differentiable in x and in the values, with
                              the JAX StreamSpMV/StreamSpMM VJP (the kernel
                              on the CSR of A^T for x, sum_m ybar[row, m] *
@@ -22,6 +23,8 @@ package builds a transposed pack. The TPU's multi-RHS relayout ([t, M*8,
                              to its transpose (`link_transposes`).
   * `csr_spmv_plain`       — the plain PyTorch version of both
                              (index_select + index_add_).
+  * `csr_row_blocks`       — K2's row blocks: runs of rows whose
+                             nonzeros one CUDA block stages at once.
   * `check_stream_pattern` — the refusals of the JAX packer
                              (`build_stream`), so the port refuses exactly
                              the patterns the JAX package refuses and both
@@ -41,6 +44,10 @@ import torch
 from gnnla_tpu_torch import _build
 
 TILE = 1024  # the JAX packer's row tile / column superchunk width
+# K2's row blocks (csrc/csr_spmv.cu): nonzeros a block stages at once, rows
+# a block (one a thread), and the length above which a row is a block of
+# its own, summed by the whole block
+BLOCK_NNZ, BLOCK_ROWS, LONG_ROW = 2048, 256, 64
 
 
 def check_stream_pattern(indptr, indices, n_cols: int) -> int:
@@ -108,17 +115,47 @@ def csr_spmv_plain(rows: torch.Tensor, cols: torch.Tensor,
     return y.index_add_(0, rows, v * x.index_select(0, cols))
 
 
+def csr_row_blocks(row_ptr: torch.Tensor,
+                   budget: int = BLOCK_NNZ) -> torch.Tensor:
+    """K2's row blocks of a CSR: int32 [n_blocks + 1] row boundaries,
+    increasing from 0 to n_rows, built with torch ops on row_ptr's device.
+
+    A row of more than LONG_ROW nonzeros is a block of its own (the
+    kernel sums it with the whole block). The other rows form runs of
+    consecutive rows that start in the same window of budget - LONG_ROW
+    nonzeros and the same aligned run of BLOCK_ROWS rows, so a block holds
+    fewer than `budget` nonzeros (its last row starts inside the window
+    and holds at most LONG_ROW) and at most BLOCK_ROWS rows. Empty rows
+    join their neighbours."""
+    if budget <= LONG_ROW:
+        raise ValueError(f"csr_row_blocks: budget {budget} must exceed "
+                         f"the long-row length {LONG_ROW}")
+    rp = row_ptr.long()
+    n = rp.shape[0] - 1
+    with torch.no_grad():
+        rows = torch.arange(n, device=rp.device)
+        long_ = rp.diff() > LONG_ROW
+        window = rp[:-1] // (budget - LONG_ROW)
+        cut = torch.ones(n, dtype=torch.bool, device=rp.device)
+        cut[1:] = (long_[1:] | long_[:-1] | (window[1:] != window[:-1])
+                   | (rows[1:] % BLOCK_ROWS == 0))
+        starts = torch.nonzero(cut).reshape(-1)
+        bounds = torch.cat([starts, rows.new_full((1,), n)])
+    return bounds.to(torch.int32)
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"csr_spmv: {msg}")
 
 
 def csr_spmv_cuda(row_ptr: torch.Tensor, cols: torch.Tensor,
-                  vals: torch.Tensor, x: torch.Tensor,
-                  n_rows: int) -> torch.Tensor:
+                  vals: torch.Tensor, x: torch.Tensor, n_rows: int,
+                  row_blocks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K2 (x [n_cols]) or K3 (x [n_cols, M], row-major): y = A x
     for a CSR (row_ptr [n_rows+1] int32, cols [nnz] int32, vals [nnz]
-    f32) and x f32, all contiguous on one CUDA device."""
+    f32) and x f32, all contiguous on one CUDA device. K2 reads the CSR's
+    row blocks (`csr_row_blocks`, built here when not given)."""
     _require(x.device.type == "cuda", f"x lies on {x.device}, not CUDA")
     _require(all(t.device == x.device for t in (row_ptr, cols, vals)),
              "row_ptr, cols, vals and x must share one device")
@@ -140,8 +177,17 @@ def csr_spmv_cuda(row_ptr: torch.Tensor, cols: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if x.ndim == 1:
-            _build.check(lib.csr_spmv_f32(*args, x.data_ptr(), y.data_ptr(),
-                                          stream), "csr_spmv_f32")
+            if row_blocks is None:
+                row_blocks = csr_row_blocks(row_ptr)
+            _require(row_blocks.dtype == torch.int32
+                     and row_blocks.device == x.device
+                     and row_blocks.ndim == 1 and row_blocks.shape[0] >= 1,
+                     "row blocks must be int32 [n_blocks + 1] on x's "
+                     "device")
+            _build.check(lib.csr_spmv_f32(
+                *args, row_blocks.data_ptr(), row_blocks.shape[0] - 1,
+                cols.shape[0], x.data_ptr(), y.data_ptr(), stream),
+                "csr_spmv_f32")
         else:
             _build.check(lib.csr_spmm_f32(*args, x.shape[1], x.data_ptr(),
                                           y.data_ptr(), stream),
@@ -214,7 +260,9 @@ class CsrSpMV:
     `launches` counts K2 launches and `launches_mm` K3 launches, backward
     ones included; neither moves on the CPU path, which runs the plain
     version. `transpose` is the CsrSpMV of A^T that the gradient in x runs
-    on (None: no gradient, the JAX package's with_transpose=False)."""
+    on (None: no gradient, the JAX package's with_transpose=False).
+    `row_blocks` are K2's (`csr_row_blocks`, built here once), and
+    `long_rows` counts the rows a whole CUDA block sums."""
 
     def __init__(self, A_csr, *, device: torch.device):
         """A_csr: scipy CSR with sorted indices (values cast to f32)."""
@@ -222,6 +270,9 @@ class CsrSpMV:
                                        int(A_csr.shape[1]))
         self.nnz = int(A_csr.nnz)
         self.row_ptr, self.cols, self.vals = device_csr(A_csr, device)
+        self.row_blocks = csr_row_blocks(self.row_ptr)
+        self.long_rows = int(np.count_nonzero(np.diff(A_csr.indptr)
+                                              > LONG_ROW))
         self.transpose = None
         self.launches = 0
         self.launches_mm = 0
@@ -238,7 +289,8 @@ class CsrSpMV:
         (counted), the plain version on a CPU tensor."""
         if x.device.type == "cpu":
             return self.plain(x, vals)
-        y = csr_spmv_cuda(self.row_ptr, self.cols, vals, x, self.shape[0])
+        y = csr_spmv_cuda(self.row_ptr, self.cols, vals, x, self.shape[0],
+                          self.row_blocks)
         if x.ndim == 1:
             self.launches += 1
         else:

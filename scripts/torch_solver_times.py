@@ -1,6 +1,5 @@
-"""Time the PyTorch port's solvers that run kernels K1 and K3 on one NVIDIA
-card, with their spread and device busy time, so two commits can be
-compared.
+"""Time the PyTorch port's solvers and kernels K1-K4 on one NVIDIA card,
+with their spread and device busy time, so two commits can be compared.
 
     python3 scripts/torch_solver_times.py [--tree DIR] [--windows 9]
 
@@ -18,7 +17,18 @@ On the 1024^2 FD Laplacian, as chip_smoke.py builds them:
   gelfand  the vertices shuffled by default_rng(0), the RCM-ordered CSR
            pair negated, one value-and-grad of the SpMM Gelfand loss in
            the diagonal (M = 20 probes, k = 3: 3 + 2 K3 launches): ms per
-           value-and-grad (`--windows` windows of 5).
+           value-and-grad (`--windows` windows of 5);
+  geometric, stencil, stream
+           `GeometricVCycle` on the alternating setup, `AutoTwoGrid` on the
+           CLJP setup (its "stencil" leg) and on the shuffled Laplacian
+           (its "stream" leg, K2 on the RCM-ordered A): ms per cycle
+           (`--windows` windows of 20) and device busy ms per cycle;
+  kernels  per K1, K2 and K4 call of those paths, the mean ms of one call
+           through its wrapper with the L2 cache flushed before it (a 1 GB
+           read, long enough to cover the wrapper's host time), over
+           `--windows` x 5 calls: K1 on A and Ac (finite x), K2 on P, P^T,
+           A_rcm and A_rcm^T, K4's Ac apply, 3-step Jacobi, residual,
+           bf16-tap Jacobi and 3-step plain call on A^T's taps.
 b = default_rng(3) normal. Prints one JSON line: the tree, the card and
 its power limit, and per metric the median, minimum, maximum and every
 window.
@@ -51,13 +61,18 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from gnnla_tpu_torch.models.geometric import GeometricVCycle
     from gnnla_tpu_torch.models.krylov import amg_pcg, mg_pcg
     from gnnla_tpu_torch.models.multigrid import (setup_sa_multigrid,
                                                   setup_with_dia_multigrid)
-    from gnnla_tpu_torch.models.vcycle import (setup_twogrid,
+    from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid, setup_twogrid,
                                                setup_with_dia,
                                                setup_with_stream_p, solve)
     from gnnla_tpu_torch.ops.sparse import SparseOperator
+    from gnnla_tpu_torch.ops.stencil import stencil_transpose
+    from gnnla_tpu_torch.ops.stencil_kernel import (StencilCall,
+                                                    make_stencil_jacobi,
+                                                    make_stencil_spmv)
     from gnnla_tpu_torch.ops.stream_op import csr_pair
     from gnnla_tpu_torch.ops.stream_spmv import rcm_csr
     from gnnla_tpu_torch.problems import laplacian_2d
@@ -101,6 +116,32 @@ def main() -> int:
         return dict(median=float(np.median(v)), min=min(v), max=max(v),
                     windows=v)
 
+    flush = torch.ones(256 * 2 ** 20, device=dev)  # 1 GB, 20x the L2
+
+    def cold_ms(fn, calls: int = 5) -> float:
+        """Mean ms of one call of fn, the L2 flushed before each; the
+        flush is enqueued first, so the host enqueues the call while the
+        device still reads it."""
+        fn()
+        total = 0.0
+        for _ in range(calls):
+            flush.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / calls
+
+    def kernel_row(fn):
+        return stats([cold_ms(fn) for _ in range(args.windows)])
+
+    def rand(shape, seed):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            shape).astype(np.float32)).to(dev)
+
     A = laplacian_2d(1024, device=dev).eliminate_zeros()
     b = torch.from_numpy(np.random.default_rng(3).standard_normal(
         A.n_rows).astype(np.float32)).to(dev)
@@ -119,6 +160,14 @@ def main() -> int:
                                       for _ in range(args.windows)])
     out["fast_device_busy_ms_per_cycle"] = busy_ms(cycle)
     out["fast_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+
+    kern = {}
+    xa, xc = rand(A.n_rows, 5), rand(fast.Ac.n, 6)
+    kern["k1_A"] = kernel_row(lambda: fast.A.matvec(xa))
+    kern["k1_Ac"] = kernel_row(lambda: fast.Ac.matvec(xc))
+    xp = rand(fast.P.shape[1], 7)
+    kern["k2_P"] = kernel_row(lambda: fast.P.fwd(xp))
+    kern["k2_Pt"] = kernel_row(lambda: fast.P.bwd(xa))
 
     def pcg():
         amg_pcg(fast, b, x0, n_iters=10, flip_sign=True)
@@ -139,10 +188,50 @@ def main() -> int:
     out["mg_pcg_device_busy_ms_per_iter"] = busy_ms(mgp) / 30
     del mg
 
+    gs = (1024, 1024)
+
+    def cycles(name, run):
+        def cycle():
+            run(b, x0)
+        window(cycle, 3)
+        out[f"{name}_ms_per_cycle"] = stats([window(cycle, 20)
+                                             for _ in range(args.windows)])
+        out[f"{name}_device_busy_ms_per_cycle"] = busy_ms(cycle)
+
+    alt = setup_twogrid(A, theta=0.25, splitting="alternating")
+    geo = GeometricVCycle(A, gs, setup=alt)
+    cycles("geometric", geo.run)
+    auto = AutoTwoGrid(setup_twogrid(A, theta=0.25, splitting="cljp",
+                                     seed=0))
+    cycles("stencil_auto", auto.run)
+    x2, c2 = rand(gs, 8), rand(gs, 9)
+    xc2 = rand(tuple(geo._ac_call.taps.shape[1:]), 10)
+    jac16 = make_stencil_jacobi(A, gs, omega=0.7, n_iters=3, diag=alt.diag,
+                                tap_dtype=torch.bfloat16)
+    sp3 = make_stencil_spmv(A, gs, 3)
+    _, planes_t = stencil_transpose(sp3.shifts, sp3.taps)
+    spmv_t = StencilCall(sp3.shifts_t, planes_t.contiguous(), 3, "plain")
+    kern["k4_Ac_plain"] = kernel_row(lambda: geo._ac_call(xc2))
+    kern["k4_jacobi_affine"] = kernel_row(lambda: geo._pre._call(x2, c2))
+    kern["k4_residual_affine"] = kernel_row(lambda: geo._res._call(x2, c2))
+    kern["k4_jacobi_affine_bf16"] = kernel_row(lambda: jac16._call(x2, c2))
+    kern["k4_plain_3step_T"] = kernel_row(lambda: spmv_t(x2))
+    del geo, auto, alt, jac16, sp3, spmv_t, planes_t
+
     rows, cols, vals = A.host_coo()
     new = np.argsort(np.random.default_rng(0).permutation(A.n_rows))
     A_p = SparseOperator.from_coo(new[rows], new[cols], vals, A.shape,
                                   device=dev)
+    leg = AutoTwoGrid(setup_twogrid(A_p, theta=0.25, splitting="cljp",
+                                    seed=0))
+    assert leg.layout == "stream", leg.why
+    cycles("stream_auto", leg.run)
+    S = leg.setup.A
+    xk = rand(A.n_rows, 11)
+    kern["k2_A_rcm"] = kernel_row(lambda: S.fwd(xk))
+    kern["k2_A_rcm_T"] = kernel_row(lambda: S.bwd(xk))
+    out["kernels_flushed_ms"] = kern
+    del leg, S
     csr = A_p.to_scipy()
     csr.sort_indices()
     B, perm = rcm_csr(csr)

@@ -287,3 +287,99 @@ def test_split_form_is_chosen_from_n(n):
     assert float(tiles.seg_vals.sum()) == 2 * n
     assert tiles.seg_off.tolist()[:2] == [0, 1]
 
+
+
+# ------------------------------------------------------- non-finite x
+def nonfinite_rows(tiles, offsets, x):
+    """The rows K1's repair names: r = j - off for each non-finite x[j] and
+    each dense offset, in range, whose (tile of r, offset) segment the
+    layout skipped. (A stored zero times inf or NaN is NaN already.)"""
+    stored = set(zip(tile_of(tiles).tolist(), tiles.seg_off.tolist()))
+    rows = set()
+    for j in torch.nonzero(~torch.isfinite(x)).reshape(-1).tolist():
+        for off in offsets:
+            r = j - off
+            if 0 <= r < tiles.n and (r // TILE, off) not in stored:
+                rows.add(r)
+    return torch.tensor(sorted(rows), dtype=torch.long)
+
+
+def nonfinite_x(tiles, offsets, seed):
+    """A standard normal x with +inf, -inf and NaN at three columns, each
+    reached by some row through a segment the layout skipped."""
+    n = tiles.n
+    stored = set(zip(tile_of(tiles).tolist(), tiles.seg_off.tolist()))
+    reach = sorted({r + off for r in range(n) for off in offsets
+                    if 0 <= r + off < n and (r // TILE, off) not in stored})
+    x = torch.from_numpy(vec(n, seed))
+    cols = np.random.default_rng(seed).choice(reach, 3, replace=False)
+    x[cols] = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    return x
+
+
+def same_nonfinite(got, want):
+    """Equal NaN, +inf and -inf positions; the finite entries close."""
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want)), test.__name__
+    fin = torch.isfinite(want)
+    assert_close(got[fin], want[fin])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["ac40", "sa64_1", "banded"])
+def test_repair_gives_the_nonfinite_pattern(case, dtype, interpret_mode):
+    """The segment walk with NaN written into `nonfinite_rows` gives
+    `dia_matvec`'s and the Pallas kernel's NaN and inf positions exactly,
+    for A and for A^T (x's cotangent): the rows a non-finite x reaches
+    only through a skipped segment exist, and the repair alone makes them
+    NaN."""
+    op, jdia = operators(case, dtype)
+    jt = j_dia_transpose(jdia)
+    t = dia_transpose(op.plain())
+    for tiles, offsets, diags, j_op, seed in (
+            (op.tiles, op.offsets, op.diags, jdia, 7),
+            (op.tiles_t, t.offsets, t.diags, jt, 8)):
+        assert tiles.offsets.tolist() == list(offsets)
+        assert tiles.state.tolist() == [0, 0] and tiles.repair
+        x = nonfinite_x(tiles, offsets, seed)
+        walked = walk(tiles, x)
+        rows = nonfinite_rows(tiles, offsets, x)
+        want = dia_matvec(diags, offsets, x)
+        hidden = torch.isnan(want) & ~torch.isnan(walked)
+        assert bool(hidden.any())  # what the skipped segments hide
+        assert torch.equal(torch.nonzero(hidden).reshape(-1),
+                           rows[~torch.isnan(walked[rows])])
+        walked[rows] = float("nan")
+        same_nonfinite(walked, want)
+        pmv = make_dia_spmv_padded(j_op, tile=1024,
+                                   diag_dtype=DTYPES[dtype][1])
+        same_nonfinite(walked, torch.from_numpy(np.array(
+            pmv.matvec(jnp.asarray(x.numpy())))))
+
+
+def test_repair_names_no_row_for_finite_x():
+    op, _ = operators("ac40", "f32")
+    x = torch.from_numpy(vec(op.n, 9))
+    assert nonfinite_rows(op.tiles, op.offsets, x).numel() == 0
+
+
+@pytest.mark.parametrize("case", CASES + ["lap40"])
+def test_repair_flag_is_a_skipped_segment_in_range(case):
+    """`DiaTiles.repair`: whether some row reaches a column through a
+    skipped segment, counted by brute force over rows and offsets. The
+    Laplacian's layouts (and the SA hierarchy's level 0, the same matrix)
+    skip segments only past the first and last grid rows, and level 3 is
+    one tile that keeps every diagonal: none of them needs the kernel's
+    ticket."""
+    if case == "lap40":
+        A = laplacian_2d(40, device="cpu").eliminate_zeros()
+        op = dia_kernel_operator(to_dia(A))
+    else:
+        op, _ = operators(case, "f32")
+    t = dia_transpose(op.plain())
+    for tiles, offsets in ((op.tiles, op.offsets), (op.tiles_t, t.offsets)):
+        stored = set(zip(tile_of(tiles).tolist(), tiles.seg_off.tolist()))
+        hidden = any(0 <= r + off < op.n and (r // TILE, off) not in stored
+                     for r in range(op.n) for off in offsets)
+        assert tiles.repair == hidden
+        assert tiles.repair == (case not in ("lap40", "sa64_0", "sa64_3"))

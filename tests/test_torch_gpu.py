@@ -152,7 +152,7 @@ def test_stencil_kernel_matches_plain(cuda, shape, mode, n_steps, tap_dtype):
     want = call.plain(x, c)
     torch.cuda.synchronize()
     assert torch.equal(x, x_before)  # the caller's x is never written
-    assert call.launches == stencil_launches(mode, n_steps)
+    assert call.launches == stencil_launches(mode, n_steps, call.form.form)
     if mode == "normalize":
         rtol = n_steps * 64 * 2.0 ** -24
         assert bool(((got - want).abs() <= rtol * want.abs()
@@ -204,7 +204,11 @@ def test_geometric_cycle_on_the_card(cuda):
     want = solve(alt, b, torch.zeros_like(b), n_cycles=3)
     torch.cuda.synchronize()
     assert float((x - want).abs().max() / want.abs().max()) < 1e-4
-    assert sum(c.launches for c in g.kernel_calls()) == 33
+    # one launch a call: the 3-step smoothers in the tile form, the
+    # residual and the 4 Ac applies (one step each) per step
+    assert (g._pre._call.form.form, g._res._call.form.form,
+            g._ac_call.form.form) == ("tile", "step", "step")
+    assert sum(c.launches for c in g.kernel_calls()) == 7 * 3
 
 
 def test_stencil_wrapper_refuses_bad_operands(cuda):
@@ -502,8 +506,11 @@ def test_dia_wrapper_refuses_other_diagonal_types(cuda):
 @pytest.mark.parametrize("n_steps", [1, 3])
 def test_stencil_spmv_grads_on_the_card(cuda, n_steps):
     """StencilSpMV's Function on the card: x and taps cotangents as on
-    the CPU; x's cotangent is exactly n_steps K4 launches."""
-    from gnnla_tpu_torch.ops.stencil_kernel import make_stencil_spmv
+    the CPU; x's cotangent is n_steps K4 launches in the per-step form,
+    which both calls take on this 32^2 grid (one step; a 3-step halo past
+    twice the tile)."""
+    from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_spmv,
+                                                    stencil_launches)
 
     out = {}
     for dev in ("cpu", cuda):
@@ -523,7 +530,9 @@ def test_stencil_spmv_grads_on_the_card(cuda, n_steps):
         scale = float(want.abs().max())
         assert bool(((got - want).abs() <= RTOL * want.abs()
                      + RTOL * scale).all())
-    assert (lf, lt) == (n_steps, n_steps)
+    assert (lf, lt) == (stencil_launches("plain", n_steps, s._call.form.form),
+                        stencil_launches("plain", n_steps, s.form_t.form))
+    assert s._call.form.form == s.form_t.form == "step"
 
 
 def test_mg_pcg_on_the_card(cuda):
@@ -704,3 +713,185 @@ def test_csr_spmm_variants_are_the_csr_order_sum(cuda, m, misaligned):
     _close(y, mm.plain(X))
     assert torch.equal(y, csr_sequential(mm, X))
     assert mm.launches_mm == 1
+
+
+# ------------------------------- K4's tile form, K2's row blocks, K1's NaNs
+@pytest.mark.parametrize("tap_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_steps", [1, 2, 3, 4])
+@pytest.mark.parametrize("mode", ["plain", "affine"])
+@pytest.mark.parametrize("shape,tile,reach", [
+    ((48, 40), (16, 40), 1), ((33, 7), (5, 7), 1), ((64, 64), (16, 32), 2),
+    ((40, 128), (32, 128), 1), ((3, 8), (2, 8), 1), ((5, 3), (2, 3), 2)],
+    ids=["48x40", "33x7", "64x64-reach2", "40x128", "3x8", "5x3-reach2"])
+def test_stencil_tile_form_is_the_plain_version(cuda, shape, tile, reach,
+                                                mode, n_steps, tap_dtype):
+    """The tile form, forced on tiles that cut the grid unevenly, on grids
+    smaller than their halo, with periodic wraps and a reach of 2, with
+    one, four and eight columns a thread: the plain version's bits, one
+    launch, the caller's x untouched."""
+    from gnnla_tpu_torch.ops.stencil import stencil_apply_plain
+    from gnnla_tpu_torch.ops.stencil_kernel import (shifts_tensor,
+                                                    stencil_cuda, tile_form)
+
+    h, w = shape
+    rng = np.random.default_rng(n_steps + 10 * reach)
+    shifts = [(dy % h, dx % w) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    if reach > 1:
+        shifts += [(reach % h, (1 - reach) % w), ((-reach) % h, reach % w)]
+    taps = torch.from_numpy(rng.uniform(-0.3, 0.3, (len(shifts), h, w))).to(
+        tap_dtype).to(cuda)
+    x, c = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    c = c if mode == "affine" else None
+    form = tile_form(shifts, shape, n_steps, tap_dtype, tile)
+    x_before = x.clone()
+    got = stencil_cuda(taps, shifts_tensor(shifts), x, n_steps, mode, c,
+                       form)
+    want = stencil_apply_plain(taps, shifts, x, n_steps, mode, c)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x_before)
+    assert torch.equal(got, want)
+
+
+def test_stencil_forms_and_launches_of_the_cycles(cuda):
+    """The cycles' K4 calls at 64^2: 7 launches a geometric cycle, 3 a
+    stencil AutoTwoGrid cycle, 1 for a 3-step SpMV's x cotangent; a wide
+    operator (a reach of 40 at 3 steps) runs per step and matches."""
+    from gnnla_tpu_torch.models.vcycle import AutoTwoGrid, setup_twogrid
+    from gnnla_tpu_torch.ops.stencil import stencil_apply_plain
+    from gnnla_tpu_torch.ops.stencil_kernel import (StencilCall,
+                                                    make_stencil_spmv)
+
+    A = _grid_op("nonsym", 64, cuda)
+    auto = AutoTwoGrid(setup_twogrid(A))
+    assert auto.layout == "stencil"
+    calls = auto._stencil.kernel_calls()
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        4096).astype(np.float32)).to(cuda)
+    auto.run(b, torch.zeros_like(b))
+    assert sum(c.launches for c in calls) == 3
+    s = make_stencil_spmv(A, (64, 64), 3)
+    x = b.reshape(64, 64).clone().requires_grad_(True)
+    torch.sum(s.apply(x)).backward()
+    assert (s._call.launches, s.launches_t) == (1, 1)
+    rng = np.random.default_rng(2)
+    wide = [(0, 0), (1, 0), (63, 0), (40, 3), (24, 61)]
+    taps = torch.from_numpy(rng.uniform(-0.3, 0.3, (5, 64, 64)).astype(
+        np.float32)).to(cuda)
+    call = StencilCall(wide, taps, 3, "plain")
+    assert call.form.form == "step"
+    y = call(b.reshape(64, 64))
+    torch.cuda.synchronize()
+    assert call.launches == 3
+    assert torch.equal(y, stencil_apply_plain(taps, wide, b.reshape(64, 64),
+                                              3, "plain"))
+
+
+def _power_law_csr(n, seed):
+    """Rows of 1 to 3,000 nonzeros (a Zipf tail), distinct columns."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(rng.zipf(1.6, n), 3000)
+    lens[5] = 3000
+    rows = np.repeat(np.arange(n), lens)
+    cols = np.concatenate([rng.choice(n, k, replace=False) for k in lens])
+    A = sp.csr_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(n, n))
+    A.sort_indices()
+    return A
+
+
+def test_csr_kernel_is_the_csr_order_sum(cuda):
+    """K2 on P, P^T (the 64^2 fast setup), A_rcm and A_rcm^T (a shuffled
+    80^2 Laplacian): bitwise the CSR-order mul-then-add; on a power-law
+    pattern with rows of up to 3,000 nonzeros (long rows summed by a
+    whole block) the plain version within rtol; one launch each."""
+    from chip_smoke import csr_sequential
+    from gnnla_tpu_torch.ops.stream_op import stream_operator
+    from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV
+
+    _, fast = _fast(64, cuda)
+    A, _, _ = _rcm_csr(80, cuda)
+    S = stream_operator(A, reorder=True)
+    for csr in (fast.P.fwd, fast.P.bwd, S.fwd, S.bwd):
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            csr.shape[1]).astype(np.float32)).to(cuda)
+        csr.launches = 0
+        y = csr(x)
+        assert csr.launches == 1 and csr.long_rows == 0
+        assert torch.equal(y, csr_sequential(csr, x[:, None])[:, 0])
+        _close(y, csr.plain(x))
+    pl = CsrSpMV(_power_law_csr(5000, 3), device=cuda)
+    assert pl.long_rows > 0
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        5000).astype(np.float32)).to(cuda)
+    _close(pl(x), pl.plain(x))
+    assert pl.launches == 1
+
+
+def test_csr_kernel_grads_match_the_plain_version(cuda):
+    """K2's autograd on the row-block kernel: x's and the values'
+    cotangents of the plain CSR version's autograd, on the power-law
+    pattern (long rows both ways)."""
+    from gnnla_tpu_torch.ops.stream_op import csr_pair
+    from gnnla_tpu_torch.ops.stream_spmv import csr_spmv_plain, entry_rows
+
+    B = _power_law_csr(3000, 5)
+    fwd, _ = csr_pair(B, cuda, width=3000)
+    rng = np.random.default_rng(6)
+    x0, w = (torch.from_numpy(rng.standard_normal(3000).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    x = x0.clone().requires_grad_(True)
+    fwd.vals.requires_grad_(True)
+    torch.dot(w, fwd(x)).backward()
+    x2 = x0.clone().requires_grad_(True)
+    v2 = fwd.vals.detach().clone().requires_grad_(True)
+    torch.dot(w, csr_spmv_plain(entry_rows(fwd.row_ptr, fwd.nnz), fwd.cols,
+                                v2, x2, 3000)).backward()
+    _close(x.grad, x2.grad)
+    _close(fwd.vals.grad, v2.grad)
+    assert (fwd.launches, fwd.transpose.launches) == (1, 1)
+    fwd.vals.requires_grad_(False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dia_kernel_gives_the_reference_nans(cuda, dtype):
+    """x with +inf, -inf and NaN at columns some rows reach only through
+    a skipped segment: on the 40^2 fast Ac and its transpose (x's
+    cotangent), both launch forms, K1 gives the plain version's NaN and
+    inf positions exactly, the finite entries within rtol, leaves its
+    state zeroed and rebuilds nothing; finite x is unchanged."""
+    from chip_smoke import nonfinite_probe
+    from gnnla_tpu_torch.ops.dia import dia_transpose
+    from gnnla_tpu_torch.ops.dia_spmv import (dia_kernel_operator,
+                                              dia_tiles_spmv_cuda)
+
+    _, fast = _fast(40, cuda)
+    op = dia_kernel_operator(fast.Ac.plain(), diag_dtype=dtype)
+    t = dia_transpose(op.plain())
+    for tiles, plain_op, seed in ((op.tiles, op.plain(), 1),
+                                  (op.tiles_t, t, 2)):
+        cols, rows = nonfinite_probe(tiles, 3, seed)
+        assert len(cols) == 3
+        x_fin = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            op.n).astype(np.float32)).to(cuda)
+        y_fin = dia_tiles_spmv_cuda(tiles, x_fin)
+        x = x_fin.clone()
+        x[cols] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                               device=cuda)
+        want = plain_op.matvec(x)
+        assert bool(torch.isnan(want[rows]).all())
+        for split in (False, True):
+            got = dia_tiles_spmv_cuda(tiles._replace(split=split), x)
+            torch.cuda.synchronize()
+            for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                assert torch.equal(test(got), test(want))
+            fin = torch.isfinite(want)
+            _close(got[fin], want[fin])
+            assert tiles.state.tolist() == [0, 0]
+        # the next launch on finite x sees no stale flag
+        assert torch.equal(dia_tiles_spmv_cuda(tiles, x_fin), y_fin)
+    assert op.rebuilds == 0
