@@ -157,6 +157,36 @@ The multilevel hierarchies and the Krylov solvers:
                     the SA V-cycle (K1 levels, n_pre = n_post = 2, 8
                     cycles): SA below classical, each within 0.01 of the
                     JAX package's table (BENCH_r05.json).
+The GN-block engine and the paper's GN forms, held against the kernels:
+ 23. gn_setup     — `setup_twogrid(use_device_gnn=True)` on phase 3's
+                    operator (SOC and direct interpolation as GN blocks on
+                    the card, CLJP on the host): phase 3's coarse flags
+                    exactly, P within rtol 1e-5 / atol 1e-6 and Ac within
+                    rtol 1e-4 / atol 1e-5 of the host setup's; 5 cycles
+                    of `solve`, the residual falls every cycle, x within
+                    1e-4 of max|x| of phase 5's plain x; setup seconds
+                    beside phase 3's.
+ 24. gn_forms     — each GN form on a COO operator at 1024^2 against its
+                    fused form on the kernels: `matvec_gnn` on A against
+                    K1, on the stream leg's A_rcm against K2 and, with a
+                    [N, 20] X, against K3; `residual_gnn` against K1 and
+                    K4; the weighted norm (W = -A) against K1; 3 Jacobi
+                    sweeps against K1 and K4 (3x the tolerance); degree-4
+                    Chebyshev on Ac against K1 (4x); 10 power iterations
+                    against K1 and K4 normalize (lambda rtol 1e-5, b 10x);
+                    the launches of exactly those calls; `soc_classic`
+                    (strong identical), `soc_sa` (rtol 1e-6) and
+                    `direct_interp` (finite weights rtol 1e-5, non-finite
+                    positions equal) against the setup's host formulas;
+                    `sddmm` against the sampled dense U V^T on a 64^2
+                    pattern; 100 small-band matrices batched with
+                    per-graph globals against 100 single-graph calls.
+ 25. gn_times     — per form, the GN form and each fused form: ms per call
+                    (CUDA events, 20 warm calls), the ratio, device busy
+                    ms and device operations per call (profiler), the
+                    port's kernel launches per call (the wrappers'
+                    counts), the peak memory above the inputs; the host
+                    formulas' seconds for SOC and direct interpolation.
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, and the script exits non-zero.
@@ -178,6 +208,15 @@ import numpy as np
 import torch
 
 from gnnla_tpu_torch import _build, native_ext
+from gnnla_tpu_torch.core import (GNBlock, GraphState, batch_operators,
+                                  graph_sizes, unbatch_vertices)
+from gnnla_tpu_torch.core.block import DENSE_LAYOUT_MAX_EDGES
+from gnnla_tpu_torch.models import (chebyshev, chebyshev_gnn, direct_interp,
+                                    jacobi, jacobi_gnn, matrix_weighted_norm,
+                                    matrix_weighted_norm_gnn, matvec,
+                                    matvec_gnn, power_method,
+                                    power_method_gnn, residual, residual_gnn,
+                                    soc_classic, soc_sa)
 from gnnla_tpu_torch.models.geometric import GeometricVCycle
 from gnnla_tpu_torch.models.krylov import amg_pcg, cg, mg_pcg
 from gnnla_tpu_torch.models.multigrid import (multigrid_cycle,
@@ -187,10 +226,14 @@ from gnnla_tpu_torch.models.multigrid import (multigrid_cycle,
 from gnnla_tpu_torch.models.trainable_jacobi import (TrainableJacobiMLP,
                                                      jacobi_diag_features,
                                                      predict_diag)
-from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid, setup_twogrid,
+from gnnla_tpu_torch.models.vcycle import (AutoTwoGrid,
+                                           _direct_interp_host,
+                                           _direct_interp_raw,
+                                           _soc_classic_host, setup_twogrid,
                                            setup_with_dia,
                                            setup_with_stream_p, solve)
-from gnnla_tpu_torch.ops.dia import DIAOperator, dia_matvec, dia_transpose
+from gnnla_tpu_torch.ops.dia import (DIAOperator, dia_matvec, dia_transpose,
+                                     to_dia)
 from gnnla_tpu_torch.ops.dia_spmv import (DiaKernelOperator,
                                           dia_kernel_operator)
 from gnnla_tpu_torch.ops.sparse import SparseOperator
@@ -199,6 +242,7 @@ from gnnla_tpu_torch.ops.stencil import (stencil_apply_plain,
 from gnnla_tpu_torch.ops.stencil_kernel import (TILES, StencilCall,
                                                 make_stencil_jacobi,
                                                 make_stencil_power,
+                                                make_stencil_residual,
                                                 make_stencil_spmv,
                                                 shifts_tensor, stencil_args,
                                                 stencil_buffers, stencil_cuda,
@@ -491,13 +535,15 @@ def profile_cycles(run_cycles) -> dict:
             rows.append((ev.key[:60], ev.count / 3, dev_us / 3e3))
     rows.sort(key=lambda r: -r[2])
     return dict(device_busy_ms_per_cycle=sum(r[2] for r in rows),
+                launches_per_cycle=sum(r[1] for r in rows),
                 top_kernels_per_cycle=[
                     dict(kernel=k, launches=c, ms=m) for k, c, m in rows[:12]])
 
 
 def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     """Phases 7-11 (the grid path on kernel K4); returns the K4 rows of
-    the kernels line, one per shape the grid path launches."""
+    the kernels line, one per shape the grid path launches, and the rows
+    of the shapes it does not launch (normalize, bf16 taps, A^T's taps)."""
     dev = b.device
     n = A.n_rows
     gs = (N_GRID, N_GRID)
@@ -756,12 +802,13 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
               / ms_geo,
               geometric_top_kernels_per_cycle=prof["top_kernels_per_cycle"],
               nvidia_smi=smi))
-    return rows
+    return rows, off_path
 
 
 def stream_path(A, flush, smi) -> list:
     """Phase 12 (`AutoTwoGrid`'s "stream" leg: A on kernel K2 in RCM order,
-    perm/iperm gathers around it); returns the K2 row of that leg."""
+    perm/iperm gathers around it); returns the K2 rows of that leg, the
+    shuffled operator and its `StreamOperator`."""
     dev, n = A.device, A.n_rows
     rows, cols, vals = A.host_coo()
     # the same Laplacian with its vertices shuffled: no grid, no band, so
@@ -903,7 +950,7 @@ def stream_path(A, flush, smi) -> list:
               k2_backward=dict(results=list(grad_errs.values()),
                                launches=grad_launches),
               nvidia_smi=smi))
-    return rows_out, A_p
+    return rows_out, A_p, S
 
 
 def jacobi_weights(dev) -> None:
@@ -1658,6 +1705,304 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
     return rows_out
 
 
+def sparse_close(got, want, rtol: float, atol: float, what: str) -> dict:
+    """|got - want| <= rtol |want| + atol entrywise over the union of two
+    operators' patterns (host float64; the patterns may differ where a
+    Galerkin sum cancels exactly in one and not in the other)."""
+    g, w = got.to_scipy(), want.to_scipy()
+    require(g.shape == w.shape, (what, g.shape, w.shape))
+    diff = abs(g - w)
+    excess = float((diff - rtol * abs(w)).max())
+    out = dict(what=what, max_abs_err=float(diff.max()), nnz=[g.nnz, w.nnz])
+    require(excess <= atol, (out, excess))
+    return out
+
+
+def batch_block() -> GNBlock:
+    """A GN block with per-graph globals g = [s, t]: c_ij = s A_ij x_j,
+    y_i = x_i cbar_i + t, g' = [sum y, max A_ij, min x, mean x]."""
+    def edge_fn(v_i, v_j, e, g):
+        a = e[:, :1]
+        return torch.cat([a, g[..., :1] * a * v_j[:, :1]], dim=1)
+
+    def vertex_fn(v, e, agg, g):
+        x = v[:, 0]
+        return torch.stack([x, x * agg.sum(e[:, 1]) + g[..., 1]], dim=1)
+
+    def global_fn(v, e, g, vagg, eagg):
+        return torch.stack([vagg.sum(v[:, 1]), eagg.max(e[:, 0]),
+                            vagg.min(v[:, 0]), vagg.mean(v[:, 0])], dim=-1)
+    return GNBlock(edge_fn, vertex_fn, global_fn)
+
+
+def gn_batched(dev) -> dict:
+    """100 small-band matrices (n = 38, the learned smoother's batch) in
+    one block-diagonal batch with per-graph globals, against 100
+    single-graph calls of the same block."""
+    ds = small_band_dataset(100, n=38, device=dev)
+    ops = [ds.template.with_values(ds.vals[k]) for k in range(ds.n_graphs)]
+    big, batch = batch_operators(ops)
+    gen = np.random.default_rng(41)
+    x = torch.from_numpy(gen.standard_normal(big.n_rows).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(gen.standard_normal((len(ops), 2)).astype(
+        np.float32)).to(dev)
+    blk = batch_block()
+    out = blk(big, GraphState(vertices=x[:, None], edges=big.vals[:, None],
+                              globals_=g), batch)
+    singles_v, singles_g, off = [], [], 0
+    for k, op in enumerate(ops):
+        one = blk(op, GraphState(vertices=x[off:off + op.n_rows, None],
+                                 edges=op.vals[:, None], globals_=g[k]))
+        singles_v.append(one.vertices)
+        singles_g.append(one.globals_)
+        off += op.n_rows
+    require(tuple(out.globals_.shape) == (len(ops), 4), out.globals_.shape)
+    errs = [compare(torch.cat(unbatch_vertices(out.vertices,
+                                               graph_sizes(ops))),
+                    torch.cat(singles_v), "batched vertices"),
+            compare(out.globals_, torch.stack(singles_g), "batched globals")]
+    return dict(graphs=len(ops), vertices=big.n_rows, edges=big.nnz,
+                results=errs)
+
+
+def gn_phases(A, plain, fast, b, x_plain, S, t_setup, norm_row,
+              smi) -> None:
+    """Phases 23-25: `setup_twogrid(use_device_gnn=True)` at 1024^2, every
+    GN-block form against its fused form on the kernels, and their
+    times. Sets the launches of K4's normalize row (`norm_row`) to the
+    count its gn_forms check takes."""
+    dev, n = A.device, A.n_rows
+    gs = (N_GRID, N_GRID)
+
+    # --------------------------------------------------------- gn_setup
+    t0 = time.perf_counter()
+    gn = setup_twogrid(A, theta=0.25, splitting="cljp", seed=0,
+                       use_device_gnn=True)
+    t_gn = time.perf_counter() - t0
+    require(torch.equal(gn.coarse_flags, plain.coarse_flags),
+            "device-GNN coarse flags differ from the host setup's")
+    setup_errs = [sparse_close(gn.P, plain.P, 1e-5, 1e-6, "P"),
+                  sparse_close(gn.Ac, plain.Ac, 1e-4, 1e-5, "Ac")]
+    x = torch.zeros(n, device=dev)
+    res = [float(torch.linalg.vector_norm(b - A.matvec(x)))]
+    for _ in range(N_CYCLES):
+        x = solve(gn, b, x, n_cycles=1)
+        res.append(float(torch.linalg.vector_norm(b - A.matvec(x))))
+    require(all(r1 < r0 for r0, r1 in zip(res, res[1:])), res)
+    require(bool(torch.isfinite(x).all()), "device-GNN x must be finite")
+    rel = float((x - x_plain).abs().max() / x_plain.abs().max())
+    require(rel <= 1e-4, rel)
+    emit(dict(phase="gn_setup", setup_twogrid_device_gnn_s=t_gn,
+              setup_twogrid_host_s=t_setup, nc=gn.P.shape[1],
+              coarse_flags_identical=True, results=setup_errs,
+              cycles=N_CYCLES, residual_norms=res, rel_err_vs_plain_x=rel,
+              nvidia_smi=smi))
+    del gn, x
+
+    # --------------------------------------------------------- gn_forms
+    gen = np.random.default_rng(43)
+
+    def vec(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(
+            np.float32)).to(dev)
+
+    x, bb, b0 = vec(n), vec(n), vec(n)
+    nc = plain.Ac.n_rows
+    xc, bc = vec(nc), vec(nc)
+    # the stream leg's kernel order (RCM) as a COO operator
+    rp = S.fwd.row_ptr.cpu().numpy()
+    A_rcm = SparseOperator.from_coo(
+        np.repeat(np.arange(n), np.diff(rp)), S.fwd.cols.cpu().numpy(),
+        S.fwd.vals.cpu().numpy().astype(np.float64), S.fwd.shape,
+        coalesce=False, device=dev)
+    xk, Xk = vec(n), vec(n, M_PROBES)
+    W = A.scale(-1.0)  # positive definite: the weighted norm's W
+    W_k1 = dia_kernel_operator(to_dia(W))
+    A_nd = A.remove_diagonal()
+    res_k4 = make_stencil_residual(A, gs)
+    jac_k4 = make_stencil_jacobi(A, gs, omega=0.7, n_iters=3)
+    pow_k4 = make_stencil_power(A, gs, n_iters=10)
+    calls = {"K4_residual": res_k4._call, "K4_jacobi": jac_k4._call,
+             "K4_power": pow_k4._call}
+    for op in (fast.A, fast.Ac, W_k1, S.fwd):
+        op.launches = 0
+    S.fwd.launches_mm = 0
+    for call in calls.values():
+        call.launches = 0
+    tol1 = dict(rtol=RTOL, atol_scale=RTOL)
+    tol3 = dict(rtol=3 * RTOL, atol_scale=3 * RTOL)
+    out = {}
+    out["matvec_A_vs_K1"] = compare(matvec_gnn(A, x), matvec(fast.A, x),
+                                    "matvec K1", **tol1)
+    out["matvec_Arcm_vs_K2"] = compare(matvec_gnn(A_rcm, xk), S.fwd(xk),
+                                       "matvec K2", **tol1)
+    out["matvec_Arcm_X20_vs_K3"] = compare(matvec_gnn(A_rcm, Xk), S.fwd(Xk),
+                                           "matvec K3", **tol1)
+    r_gn = residual_gnn(A, bb, x)
+    out["residual_vs_K1"] = compare(r_gn, residual(fast.A, bb, x),
+                                    "residual K1", **tol1)
+    out["residual_vs_K4"] = compare(r_gn, res_k4.residual(bb, x),
+                                    "residual K4", **tol1)
+    out["norm_vs_K1"] = compare(
+        matrix_weighted_norm_gnn(W, x).reshape(1),
+        matrix_weighted_norm(W_k1, x).reshape(1), "weighted norm K1",
+        rtol=RTOL, atol_scale=0.0)
+    j_gn = jacobi_gnn(A, bb, x, omega=0.7, n_iters=3)
+    out["jacobi_vs_K1"] = compare(
+        j_gn, jacobi(fast.A, bb, x, omega=0.7, n_iters=3), "jacobi K1",
+        **tol3)
+    out["jacobi_vs_K4"] = compare(j_gn, jac_k4.smooth(bb, x), "jacobi K4",
+                                  **tol3)
+    cheb = dict(c=-3.4, d=-4.0, deg=4)
+    out["chebyshev_Ac_vs_K1"] = compare(
+        chebyshev_gnn(plain.Ac, bc, xc, **cheb),
+        chebyshev(fast.Ac, bc, xc, **cheb), "chebyshev K1",
+        rtol=4 * RTOL, atol_scale=4 * RTOL)
+    lam_gn, bv_gn = power_method_gnn(A, b0, n_iters=10)
+    for key, (lam, bv) in (("K1", power_method(fast.A, b0, n_iters=10)),
+                           ("K4", pow_k4.run(b0))):
+        out[f"power_lambda_vs_{key}"] = compare(
+            lam_gn.reshape(1), lam.reshape(1), f"power lambda {key}",
+            rtol=RTOL, atol_scale=0.0)
+        out[f"power_b_vs_{key}"] = compare(
+            bv_gn, bv, f"power b {key}", rtol=10 * RTOL,
+            atol_scale=10 * RTOL)
+    torch.cuda.synchronize()
+    launches = {"K1_A": fast.A.launches, "K1_Ac": fast.Ac.launches,
+                "K1_W": W_k1.launches, "K2_Arcm": S.fwd.launches,
+                "K3_Arcm": S.fwd.launches_mm,
+                **{k: c.launches for k, c in calls.items()}}
+    # K1 on A: matvec 1, residual 1, 3 sweeps, 10 power steps + Rayleigh
+    want = {"K1_A": 1 + 1 + 3 + 11, "K1_Ac": 4, "K1_W": 1, "K2_Arcm": 1,
+            "K3_Arcm": 1,
+            **{k: stencil_launches(c.mode, c.n_steps, c.form.form)
+               for k, c in calls.items()}}
+    require(launches == want, (launches, want))
+    norm_row["launches"] = launches["K4_power"]
+
+    # the AMG forms against the setup's host formulas
+    rows, cols, vals = A_nd.host_coo()
+    strong_h = _soc_classic_host(rows, cols, vals, n, 0.25)
+    s_gn = soc_classic(A_nd, 0.25)
+    strong = (s_gn > 0).cpu().numpy()
+    require(np.array_equal(strong, strong_h), "soc_classic strength differs")
+    diag_h = A.host_diagonal()
+    sa_gn = soc_sa(A_nd, A.diagonal()).cpu().numpy()
+    sa_h = vals * vals / (diag_h[rows] * diag_h[cols])
+    sa_err = float(np.max(np.abs(sa_gn - sa_h) / np.abs(sa_h)))
+    require(sa_err <= 1e-6, ("soc_sa", sa_err))
+    coarse = plain.coarse_flags.cpu().numpy().astype(np.float64)
+    coarse_d = torch.from_numpy(coarse).float().to(dev)
+    w_gn = direct_interp(A_nd, A.diagonal(), coarse_d, s_gn.gt(0).float()
+                         ).cpu().numpy().astype(np.float64)
+    strong_f = strong_h.astype(np.float64)
+    w_raw = _direct_interp_raw(rows, cols, vals, diag_h, coarse, strong_f)
+    w_host = _direct_interp_host(rows, cols, vals, diag_h, coarse, strong_f)
+    fin = np.isfinite(w_gn)
+    require(np.array_equal(fin, np.isfinite(w_raw))
+            and np.array_equal(np.isnan(w_gn), np.isnan(w_raw)),
+            "direct_interp's non-finite positions differ from the host's")
+    require(np.allclose(w_gn[fin], w_host[fin], rtol=RTOL, atol=0.0),
+            "direct_interp's finite weights differ from the host's")
+    # SDDMM on a 64^2 pattern against the sampled dense product
+    A64 = laplacian_2d(64, device=dev).eliminate_zeros()
+    U, V = vec(A64.n_rows, 8), vec(A64.n_rows, 8)
+    out["sddmm_64sq"] = compare(
+        A64.sddmm(U, V), (U @ V.T)[A64.rows.long(), A64.cols.long()],
+        "sddmm", **tol1)
+    amg = dict(soc_classic_strong=int(strong.sum()),
+               soc_classic_edges=int(strong.size),
+               soc_sa_max_rel_err=sa_err,
+               direct_interp_nonfinite=int((~fin).sum()),
+               direct_interp_max_abs_err=float(np.max(
+                   np.abs(w_gn[fin] - w_host[fin]))))
+    emit(dict(phase="gn_forms", n=n, A_nnz=A.nnz, A_nodiag_nnz=A_nd.nnz,
+              A_rcm_nnz=A_rcm.nnz, Ac_nnz=plain.Ac.nnz,
+              dense_row_layout=dict(
+                  A=A.nnz <= DENSE_LAYOUT_MAX_EDGES,
+                  A_nodiag=A_nd.nnz <= DENSE_LAYOUT_MAX_EDGES,
+                  Ac=plain.Ac.nnz <= DENSE_LAYOUT_MAX_EDGES),
+              results=out, amg=amg, launches=launches,
+              batched=gn_batched(dev), nvidia_smi=smi))
+
+    # --------------------------------------------------------- gn_times
+    forms = {  # form -> {variant: call}; "gn" is the GN-block form
+        "matvec": dict(gn=lambda: matvec_gnn(A, x),
+                       K1=lambda: matvec(fast.A, x)),
+        "matvec_rcm": dict(gn=lambda: matvec_gnn(A_rcm, xk),
+                           K2=lambda: S.fwd(xk)),
+        "matvec_rcm_X20": dict(gn=lambda: matvec_gnn(A_rcm, Xk),
+                               K3=lambda: S.fwd(Xk)),
+        "residual": dict(gn=lambda: residual_gnn(A, bb, x),
+                         K1=lambda: residual(fast.A, bb, x),
+                         K4=lambda: res_k4.residual(bb, x)),
+        "weighted_norm": dict(gn=lambda: matrix_weighted_norm_gnn(W, x),
+                              K1=lambda: matrix_weighted_norm(W_k1, x)),
+        "jacobi_3": dict(gn=lambda: jacobi_gnn(A, bb, x, omega=0.7,
+                                               n_iters=3),
+                         K1=lambda: jacobi(fast.A, bb, x, omega=0.7,
+                                           n_iters=3),
+                         K4=lambda: jac_k4.smooth(bb, x)),
+        "chebyshev_Ac_4": dict(
+            gn=lambda: chebyshev_gnn(plain.Ac, bc, xc, **cheb),
+            K1=lambda: chebyshev(fast.Ac, bc, xc, **cheb)),
+        "power_10": dict(gn=lambda: power_method_gnn(A, b0, n_iters=10),
+                         K1=lambda: power_method(fast.A, b0, n_iters=10),
+                         K4=lambda: pow_k4.run(b0)),
+        "soc_classic": dict(gn=lambda: soc_classic(A_nd, 0.25)),
+        "soc_sa": dict(gn=lambda: soc_sa(A_nd, A.diagonal())),
+        "direct_interp": dict(gn=lambda: direct_interp(
+            A_nd, A.diagonal(), coarse_d, s_gn.gt(0).float())),
+    }
+    def kernel_launches() -> int:
+        return (fast.A.launches + fast.Ac.launches + W_k1.launches
+                + S.fwd.launches + S.fwd.launches_mm
+                + sum(c.launches for c in calls.values()))
+
+    def window(c, fn):
+        # a PyTorch op at each end of the window (no device work): a
+        # window holding only the port's kernels came back empty from the
+        # profiler on the H100
+        torch.empty(0, device=dev)
+        out = [fn() for _ in range(c)]
+        torch.empty(0, device=dev)
+        return out
+
+    times = {}
+    for form, variants in forms.items():
+        row = {}
+        for key, fn in variants.items():
+            k0 = kernel_launches()
+            fn()
+            launched = kernel_launches() - k0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_ms(fn, iters=20)
+            peak = torch.cuda.max_memory_allocated() - base
+            prof = profile_cycles(lambda c, fn=fn: window(c, fn))
+            row[key] = dict(ms=ms,
+                            device_busy_ms=prof["device_busy_ms_per_cycle"],
+                            device_ops_per_call=prof["launches_per_cycle"],
+                            kernel_launches_per_call=launched,
+                            peak_extra_bytes=peak)
+        for key in variants:
+            if key != "gn":
+                row[f"gn_over_{key}"] = row["gn"]["ms"] / row[key]["ms"]
+        times[form] = row
+    t0 = time.perf_counter()
+    _soc_classic_host(rows, cols, vals, n, 0.25)
+    host_soc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _direct_interp_host(rows, cols, vals, diag_h, coarse, strong_f)
+    host_interp_s = time.perf_counter() - t0
+    emit(dict(phase="gn_times", iters=20, times=times,
+              host_formula_s=dict(soc_classic=host_soc_s,
+                                  direct_interp=host_interp_s),
+              nvidia_smi=smi))
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
@@ -1844,12 +2189,18 @@ def main() -> int:
         idle_share=1.0 - prof["device_busy_ms_per_cycle"] / ms_cycle,
         top_kernels_per_cycle=prof["top_kernels_per_cycle"]))
 
-    kernels += grid_path(A, plain, b, x_plain, flush, smi)
-    k2_rows, A_p = stream_path(A, flush, smi)
+    k4_rows, k4_off_path = grid_path(A, plain, b, x_plain, flush, smi)
+    kernels += k4_rows
+    k2_rows, A_p, S = stream_path(A, flush, smi)
     kernels += k2_rows
     kernels += stream_training(A_p, flush, smi)
     kernels += kernel_grads(A, plain, fast, flush, smi)
     kernels += multigrid_phases(A, plain, fast, b, flush, smi)
+    # K4's normalize mode runs on the GN phases' path (the power method)
+    (norm_row,) = [r for r in k4_off_path
+                   if r["name"] == "stencil[power_normalize]"]
+    gn_phases(A, plain, fast, b, x_plain, S, t_setup, norm_row, smi)
+    kernels.append(norm_row)
     jacobi_weights(dev)
     train_phase(dev, smi)
     emit({"kernels": kernels})

@@ -38,8 +38,10 @@ from gnnla_tpu_torch.amg.galerkin import galerkin_product
 from gnnla_tpu_torch.amg.interp import assemble_prolongation
 from gnnla_tpu_torch.amg.splitting import split
 from gnnla_tpu_torch.models.chebyshev import chebyshev
+from gnnla_tpu_torch.models.direct_interp import direct_interp
 from gnnla_tpu_torch.models.jacobi import jacobi
 from gnnla_tpu_torch.models.residual import residual
+from gnnla_tpu_torch.models.soc import soc_classic
 from gnnla_tpu_torch.ops.dia import DIAOperator, to_dia
 from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
 from gnnla_tpu_torch.ops.sparse import SparseOperator
@@ -74,8 +76,9 @@ def _soc_classic_host(rows, cols, vals, n, theta):
     return np.nan_to_num(s, nan=-1.0, posinf=np.inf) > 0
 
 
-def _direct_interp_host(rows, cols, vals, diag, coarse, strong):
-    """Direct interpolation weights: w_ij = (1-C_i) * (-A_ij * alpha_i),
+def _direct_interp_raw(rows, cols, vals, diag, coarse, strong):
+    """Direct interpolation weights in float64, divisions by zero left as
+    inf/NaN (as the GN form's): w_ij = (1-C_i) * (-A_ij * alpha_i),
     alpha_i = (sum_k A_ik / sum_k A_ik S_ik C_k) / A_ii."""
     n = diag.shape[0]
     num = np.zeros(n, dtype=np.float64)
@@ -84,8 +87,13 @@ def _direct_interp_host(rows, cols, vals, diag, coarse, strong):
     np.add.at(den, rows, vals * strong * coarse[cols])
     with np.errstate(divide="ignore", invalid="ignore"):
         alpha = (num / den) / diag
-        w = (1.0 - coarse[rows]) * (-vals * alpha[rows])
-    # C rows contribute nothing; F rows with no strong C neighbour neither
+        return (1.0 - coarse[rows]) * (-vals * alpha[rows])
+
+
+def _direct_interp_host(rows, cols, vals, diag, coarse, strong):
+    """`_direct_interp_raw` with its non-finite weights zeroed: C rows
+    contribute nothing; F rows with no strong C neighbour neither."""
+    w = _direct_interp_raw(rows, cols, vals, diag, coarse, strong)
     return np.nan_to_num(w, nan=0.0, posinf=0.0, neginf=0.0)
 
 
@@ -123,15 +131,12 @@ def setup_twogrid(A: SparseOperator, *, theta: float = 0.25,
 
     `diag` substitutes a trained Jacobi diagonal for the smoother.
     interp="reference" is the reference formula, interp="signed" the
-    Stuben variant for non-M-matrices. `use_device_gnn=True` (SOC and
-    interpolation through the GN-block kernels) comes with the GN-block
-    slice."""
+    Stuben variant for non-M-matrices. `use_device_gnn=True` runs SOC and
+    the reference direct interpolation through the GN-block forms
+    (`models/soc.py`, `models/direct_interp.py`) on A's device instead of
+    numpy; the strength flags come to the host once for the splitting."""
     import scipy.sparse as sp
 
-    if use_device_gnn:
-        raise NotImplementedError(
-            "use_device_gnn=True runs SOC and direct interpolation through "
-            "the GN-block engine, which comes with the GN-block slice")
     device = A.device
     A_nodiag = A.remove_diagonal()
     diag_h = A.host_diagonal()
@@ -141,15 +146,27 @@ def setup_twogrid(A: SparseOperator, *, theta: float = 0.25,
         a_diag = torch.as_tensor(diag, device=device).reshape(-1)
     rows, cols, vals = A_nodiag.host_coo()
 
-    strong = _soc_classic_host(rows, cols, vals, A.n_rows, theta)
+    if use_device_gnn:
+        strong = (soc_classic(A_nodiag, theta) > 0).cpu().numpy()
+    else:
+        strong = _soc_classic_host(rows, cols, vals, A.n_rows, theta)
     S_host = sp.coo_matrix(
         (strong.astype(np.float64), (rows, cols)), shape=A.shape).tocsr()
     coarse = split(S_host, method=splitting, seed=seed)
 
-    interp_fn = {"reference": _direct_interp_host,
-                 "signed": _direct_interp_host_signed}[interp]
-    w_ij = interp_fn(rows, cols, vals, diag_h, coarse.astype(np.float64),
-                     strong.astype(np.float64))
+    if use_device_gnn:
+        dtype = A.vals.dtype
+        w_ij = direct_interp(
+            A_nodiag, A.diagonal(),
+            torch.from_numpy(coarse).to(device=device, dtype=dtype),
+            torch.from_numpy(strong).to(device=device, dtype=dtype)
+        ).cpu().numpy()
+    else:
+        interp_fn = {"reference": _direct_interp_host,
+                     "signed": _direct_interp_host_signed}[interp]
+        w_ij = interp_fn(rows, cols, vals, diag_h,
+                         coarse.astype(np.float64),
+                         strong.astype(np.float64))
     P = assemble_prolongation(A_nodiag, coarse, w_ij, dtype=A.vals.dtype,
                               trunc=trunc)
     Ac = galerkin_product(A, P)

@@ -167,6 +167,17 @@ class SparseOperator:
         vals = self.vals if gathered.ndim == 1 else self.vals[:, None]
         return segment_sum(gathered * vals, self.cols, self.n_cols)
 
+    def sddmm(self, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+        """Sampled dense-dense matmul: e_k = <U[rows_k], V[cols_k]>, the
+        per-edge values of U @ V^T on this pattern.
+        U: [n_rows, F] (or [n_rows]), V: [n_cols, F] -> [nnz]."""
+        if U.ndim == 1:
+            U = U[:, None]
+        if V.ndim == 1:
+            V = V[:, None]
+        return (U.index_select(0, self.rows)
+                * V.index_select(0, self.cols)).sum(dim=-1)
+
     def diagonal(self) -> torch.Tensor:
         """Dense diagonal vector (zeros where the diagonal is not stored)."""
         is_diag = self.rows == self.cols
@@ -197,6 +208,14 @@ class SparseOperator:
             self._row_layout = DenseRowLayout(self.host_coo()[0],
                                               self.n_rows)
         return self._row_layout
+
+    def scale(self, s) -> "SparseOperator":
+        """s * A; a Python scalar s keeps the host-COO cache (scaled)."""
+        out = self.with_values(self.vals * s)
+        if self._host_coo is not None and isinstance(s, (int, float)):
+            h = self._host_coo
+            out._host_coo = (h[0], h[1], h[2] * s)
+        return out
 
     # ------------------------------------------------------- pattern views
     def remove_diagonal(self) -> "SparseOperator":

@@ -895,3 +895,187 @@ def test_dia_kernel_gives_the_reference_nans(cuda, dtype):
         # the next launch on finite x sees no stale flag
         assert torch.equal(dia_tiles_spmv_cuda(tiles, x_fin), y_fin)
     assert op.rebuilds == 0
+
+
+# ---------------------------------------------------------- the GN forms
+_GN = {}
+
+
+def _gn_fixture(device):
+    """The 64^2 Laplacian on `device`: A, its fast setup, the RCM-ordered
+    stream operator of the same matrix and its COO twin, K4's residual,
+    Jacobi and power calls, and seeded inputs; built once per device."""
+    key = str(device)
+    if key not in _GN:
+        from gnnla_tpu_torch.ops.dia import to_dia
+        from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
+        from gnnla_tpu_torch.ops.sparse import SparseOperator
+        from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
+                                                        make_stencil_power,
+                                                        make_stencil_residual)
+        from gnnla_tpu_torch.ops.stream_op import stream_operator
+
+        plain, fast = _fast(64, device)
+        A = plain.A
+        S = stream_operator(A)
+        rp = S.fwd.row_ptr.cpu().numpy()
+        A_rcm = SparseOperator.from_coo(
+            np.repeat(np.arange(A.n_rows), np.diff(rp)),
+            S.fwd.cols.cpu().numpy(),
+            S.fwd.vals.cpu().numpy().astype(np.float64), S.fwd.shape,
+            coalesce=False, device=device)
+        W = A.scale(-1.0)
+        gen = np.random.default_rng(47)
+        n, nc = A.n_rows, plain.Ac.n_rows
+
+        def vec(*shape):
+            return torch.from_numpy(gen.standard_normal(shape).astype(
+                np.float32)).to(device)
+
+        _GN[key] = dict(
+            A=A, plain=plain, fast=fast, S=S, A_rcm=A_rcm, W=W,
+            W_k1=dia_kernel_operator(to_dia(W)), A_nd=A.remove_diagonal(),
+            res=make_stencil_residual(A, (64, 64)),
+            jac=make_stencil_jacobi(A, (64, 64), omega=0.7, n_iters=3),
+            pow=make_stencil_power(A, (64, 64), n_iters=10),
+            x=vec(n), b=vec(n), X=vec(n, 20), xc=vec(nc), bc=vec(nc),
+            U=vec(n, 8), V=vec(n, 8))
+    return _GN[key]
+
+
+def _gn_forms(f):
+    """form -> (GN form's output, [kernel-backed fused outputs], scale of
+    the tolerance): one call each."""
+    from gnnla_tpu_torch import models as m
+
+    cheb = dict(c=-3.4, d=-4.0, deg=4)
+    xk = f["x"][f["S"].perm].contiguous()
+    strong = m.soc_classic(f["A_nd"], 0.25)
+    coarse = f["plain"].coarse_flags.to(f["x"].dtype)
+    return {
+        "matvec": lambda: (m.matvec_gnn(f["A"], f["x"]),
+                           [m.matvec(f["fast"].A, f["x"])], 1),
+        "matvec_rcm": lambda: (m.matvec_gnn(f["A_rcm"], xk),
+                               [f["S"].fwd(xk)], 1),
+        "matvec_rcm_X20": lambda: (m.matvec_gnn(f["A_rcm"], f["X"]),
+                                   [f["S"].fwd(f["X"])], 1),
+        "residual": lambda: (m.residual_gnn(f["A"], f["b"], f["x"]),
+                             [m.residual(f["fast"].A, f["b"], f["x"]),
+                              f["res"].residual(f["b"], f["x"])], 1),
+        "weighted_norm": lambda: (
+            m.matrix_weighted_norm_gnn(f["W"], f["x"]).reshape(1),
+            [m.matrix_weighted_norm(f["W_k1"], f["x"]).reshape(1)], 1),
+        "jacobi": lambda: (
+            m.jacobi_gnn(f["A"], f["b"], f["x"], omega=0.7, n_iters=3),
+            [m.jacobi(f["fast"].A, f["b"], f["x"], omega=0.7, n_iters=3),
+             f["jac"].smooth(f["b"], f["x"])], 3),
+        "chebyshev": lambda: (
+            m.chebyshev_gnn(f["plain"].Ac, f["bc"], f["xc"], **cheb),
+            [m.chebyshev(f["fast"].Ac, f["bc"], f["xc"], **cheb)], 4),
+        "power_lambda": lambda: (
+            m.power_method_gnn(f["A"], f["x"], n_iters=10)[0].reshape(1),
+            [m.power_method(f["fast"].A, f["x"], n_iters=10)[0].reshape(1),
+             f["pow"].run(f["x"])[0].reshape(1)], 1),
+        "power_b": lambda: (
+            m.power_method_gnn(f["A"], f["x"], n_iters=10)[1],
+            [m.power_method(f["fast"].A, f["x"], n_iters=10)[1],
+             f["pow"].run(f["x"])[1]], 10),
+        "soc_classic": lambda: (strong, [], 1),
+        "soc_sa": lambda: (m.soc_sa(f["A_nd"], f["A"].diagonal()), [], 1),
+        "direct_interp": lambda: (
+            m.direct_interp(f["A_nd"], f["A"].diagonal(), coarse,
+                            (strong > 0).to(coarse.dtype)), [], 1),
+        "sddmm": lambda: (
+            f["A"].sddmm(f["U"], f["V"]),
+            [(f["U"] @ f["V"].T)[f["A"].rows.long(), f["A"].cols.long()]],
+            1),
+    }
+
+
+def _close_scaled(got, want, k):
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    got, want = got[fin], want[fin]
+    scale = float(want.abs().max())
+    tol = k * RTOL * want.abs() + k * RTOL * scale
+    assert bool(((got - want).abs() <= tol).all()), float(
+        (got - want).abs().max())
+
+
+@pytest.mark.parametrize("form", ["matvec", "matvec_rcm", "matvec_rcm_X20",
+                                  "residual", "weighted_norm", "jacobi",
+                                  "chebyshev", "power_lambda", "power_b",
+                                  "soc_classic", "soc_sa", "direct_interp",
+                                  "sddmm"])
+def test_gn_form_on_the_card(cuda, form):
+    """Each GN form at 64^2 on the card against its CPU run and against
+    its fused forms on the kernels (K1, K2, K3, K4); the tolerance scales
+    with the iterations (3 Jacobi sweeps, degree 4, 10x on the power
+    iterate)."""
+    f_d, f_h = _gn_fixture(cuda), _gn_fixture(torch.device("cpu"))
+    got, fused, k = _gn_forms(f_d)[form]()
+    want_cpu, _, _ = _gn_forms(f_h)[form]()
+    _close_scaled(got.cpu(), want_cpu, k)
+    for y in fused:
+        _close_scaled(got, y, k)
+    if form == "soc_classic":
+        assert torch.equal((got > 0).cpu(), want_cpu > 0)
+
+
+def test_setup_twogrid_device_gnn_on_the_card(cuda):
+    """`setup_twogrid(use_device_gnn=True)` on the card: the host setup's
+    coarse flags, P and Ac within tests/test_amg.py's tolerances, and the
+    CPU's device-GNN setup."""
+    from gnnla_tpu_torch.models.vcycle import setup_twogrid
+    from gnnla_tpu_torch.problems import laplacian_2d
+
+    kw = dict(theta=0.25, splitting="cljp", seed=0)
+    A = laplacian_2d(64, device=cuda).eliminate_zeros()
+    got = setup_twogrid(A, use_device_gnn=True, **kw)
+    host = setup_twogrid(A, **kw)
+    cpu = setup_twogrid(laplacian_2d(64, device="cpu").eliminate_zeros(),
+                        use_device_gnn=True, **kw)
+    for want in (host, cpu):
+        assert torch.equal(got.coarse_flags.cpu(), want.coarse_flags.cpu())
+        np.testing.assert_allclose(got.P.to_dense().cpu().numpy(),
+                                   want.P.to_dense().cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got.Ac.to_dense().cpu().numpy(),
+                                   want.Ac.to_dense().cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_gn_batched_on_the_card(cuda):
+    """The per-graph-globals block on 20 small-band matrices batched: the
+    card against the CPU and against single-graph calls."""
+    from chip_smoke import batch_block
+    from gnnla_tpu_torch.core import (GraphState, batch_operators,
+                                      unbatch_vertices)
+    from gnnla_tpu_torch.training.datasets import small_band_dataset
+
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        ds = small_band_dataset(20, n=12, device=dev)
+        ops = [ds.template.with_values(ds.vals[k]) for k in range(20)]
+        big, batch = batch_operators(ops)
+        gen = np.random.default_rng(53)
+        x = torch.from_numpy(gen.standard_normal(big.n_rows).astype(
+            np.float32)).to(dev)
+        g = torch.from_numpy(gen.standard_normal((20, 2)).astype(
+            np.float32)).to(dev)
+        out = batch_block()(big, GraphState(x[:, None], big.vals[:, None],
+                                            g), batch)
+        outs[dev.type] = out
+        if dev.type == "cuda":
+            parts = unbatch_vertices(out.vertices, [op.n_rows for op in ops])
+            off = 0
+            for k, op in enumerate(ops):
+                one = batch_block()(op, GraphState(
+                    x[off:off + op.n_rows, None], op.vals[:, None], g[k]))
+                _close(parts[k], one.vertices)
+                _close(out.globals_[k], one.globals_)
+                off += op.n_rows
+    _close(outs["cuda"].vertices, outs["cpu"].vertices.to(cuda))
+    _close(outs["cuda"].globals_, outs["cpu"].globals_.to(cuda))

@@ -46,7 +46,20 @@ def test_port_files_found():
                  "gnnla_tpu_torch/amg/aggregation.py",
                  "gnnla_tpu_torch/models/multigrid.py",
                  "gnnla_tpu_torch/models/krylov.py",
-                 "gnnla_tpu_torch/problems/fem_heateqn.py"):
+                 "gnnla_tpu_torch/problems/fem_heateqn.py",
+                 "gnnla_tpu_torch/core/graph.py",
+                 "gnnla_tpu_torch/core/convert.py",
+                 "gnnla_tpu_torch/core/batch.py",
+                 "gnnla_tpu_torch/core/__init__.py",
+                 "gnnla_tpu_torch/problems/laplacian.py",
+                 "gnnla_tpu_torch/models/matvec.py",
+                 "gnnla_tpu_torch/models/residual.py",
+                 "gnnla_tpu_torch/models/norm.py",
+                 "gnnla_tpu_torch/models/jacobi.py",
+                 "gnnla_tpu_torch/models/chebyshev.py",
+                 "gnnla_tpu_torch/models/power_method.py",
+                 "gnnla_tpu_torch/models/soc.py",
+                 "gnnla_tpu_torch/models/direct_interp.py"):
         assert must in files
 
 
@@ -65,7 +78,7 @@ def test_import_pulls_in_no_jax():
             "gnnla_tpu_torch.training, gnnla_tpu_torch.amg.aggregation, "
             "gnnla_tpu_torch.models.multigrid, gnnla_tpu_torch.models.krylov, "
             "gnnla_tpu_torch.problems.fem_heateqn, "
-            "gnnla_tpu_torch.training.checkpoints; "
+            "gnnla_tpu_torch.training.checkpoints, gnnla_tpu_torch.core; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -153,10 +153,20 @@ def test_numpy_splittings_match(seed):
                                       getattr(j_split, fn)(S, seed=seed))
 
 
-def test_use_device_gnn_is_a_later_slice():
+def test_use_device_gnn_matches_host():
+    """SOC and direct interpolation through the GN-block forms give the
+    host setup (tests/test_amg.py's tolerances)."""
     _, s_t = _pair(24)
-    with pytest.raises(NotImplementedError, match="GN-block"):
-        tv.setup_twogrid(s_t.A, use_device_gnn=True)
+    s_d = tv.setup_twogrid(s_t.A, theta=0.25, splitting="cljp", seed=0,
+                           use_device_gnn=True)
+    np.testing.assert_array_equal(s_d.coarse_flags.numpy(),
+                                  s_t.coarse_flags.numpy())
+    np.testing.assert_allclose(s_d.P.to_dense().numpy(),
+                               s_t.P.to_dense().numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(s_d.Ac.to_dense().numpy(),
+                               s_t.Ac.to_dense().numpy(), rtol=1e-4,
+                               atol=1e-5)
 
 
 # ------------------------------------------------------- fused GN kernels
