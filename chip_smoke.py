@@ -187,6 +187,45 @@ The GN-block engine and the paper's GN forms, held against the kernels:
                     port's kernel launches per call (the wrappers'
                     counts), the peak memory above the inputs; the host
                     formulas' seconds for SOC and direct interpolation.
+The diffusion-coefficient model (no kernel of its own: dense layers, rolls
+and reductions) and the evaluation tools of both learned models:
+ 26. diffusion_data  — `cosine_diffusion_dataset(1000, n=80, max_freq=3.0,
+                    seed=41)` (host seconds, pool kind), the 700/200/100
+                    split as `train` derives it; the off-diagonal pattern
+                    takes the "grid" layout with K = 8.
+ 27. diffusion_serve — artifacts/diffusion/params.npz (1 external / 2
+                    internal layers, 32 hidden, encoder (3, 16)) in
+                    `DiffusionGNN` on the card: the grid-path loss of the
+                    100 test graphs within rtol 1e-4 of the JAX package's
+                    CPU value (JAX_CPU_TEST_LOSS) and within 10% of
+                    results.json's (the gap reported); the grid path
+                    against the edge path on 4 test graphs (rtol 1e-4,
+                    atol 1e-5); ms per 100-graph forward (CUDA events, 10
+                    warm calls), device ms and idle share (profiler), peak
+                    memory.
+ 28. diffusion_eval  — `ood_extrapolation(n=80)` (6 decades) and
+                    `freq_study_errors(n=80, max_freq=4.0)` (9 x 9) on the
+                    card against the JAX package's CPU values (rtol 1e-4);
+                    the largest relative gap to the artifacts'
+                    (results.json's ood_loss_by_decade, freq_study.npz),
+                    reported.
+ 29. diffusion_train — `train` on the card, 3 epochs of the same dataset at
+                    results.json's configuration (batch 64, lr 1e-2, seed
+                    41: 10 steps per epoch): finite losses, the train loss
+                    lower in epoch 3 than in epoch 1, the run's peak memory
+                    (200 validation graphs in one call); ms per step (CUDA
+                    events, steps 2-10), idle share of 5 steps, a step's
+                    peak memory.
+ 30. eigen        — the Jacobi test split as scripts/reproduce_jacobi.py
+                    rebuilds it (small_band_dataset(1000, n=38,
+                    h_low=5e-4, seed=54681), 800/50/150) and
+                    `eigen_analysis(artifacts/jacobi/params.npz, max_graphs=8)`
+                    with the MLP on the card: the non-learned arrays equal
+                    rows 0-7 of test_eigenvalues.npz (rtol 1e-8); the
+                    learned D^-1 within 3e-2 relative and the learned
+                    spectra within the bound that gap implies (see
+                    `eigen_phase`); per-row high-frequency damping beside
+                    the npz's.
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, and the script exits non-zero.
@@ -254,8 +293,20 @@ from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, csr_spmv_plain,
                                              entry_rows, rcm_csr)
 from gnnla_tpu_torch.problems import laplacian_2d
 from gnnla_tpu_torch.problems.small_band import small_band_matrix_host
-from gnnla_tpu_torch.training.checkpoints import load_params_npz
-from gnnla_tpu_torch.training.datasets import small_band_dataset
+from gnnla_tpu_torch.evaluation import (eigen_analysis, freq_study_errors,
+                                        ood_extrapolation)
+from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
+from gnnla_tpu_torch.ops.band import choose_edge_layout
+from gnnla_tpu_torch.training.checkpoints import (load_diffusion_params_npz,
+                                                  load_params_npz)
+from gnnla_tpu_torch.training.datasets import (cosine_diffusion_dataset,
+                                               pool_kind, small_band_dataset)
+from gnnla_tpu_torch.training.train_diffusion import (TrainDiffusionConfig,
+                                                      edge_features,
+                                                      loss_terms, make_apply,
+                                                      make_apply_banded)
+from gnnla_tpu_torch.training.train_diffusion import \
+    train as train_diffusion
 from gnnla_tpu_torch.training.spectral_loss import (
     damping_factor_gelfand, damping_factor_gelfand_spmm, uniform_probes)
 from gnnla_tpu_torch.training.train_jacobi import (PlateauScale,
@@ -292,6 +343,58 @@ AC_SEGMENTS_MAX = 378_269
 AC_STORED_BYTES_MAX = 80e6
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(ROOT, "artifacts", "jacobi")
+DIFF_ARTIFACT = os.path.join(ROOT, "artifacts", "diffusion")
+# the committed diffusion model (artifacts/diffusion/results.json)
+DIFF_CFG = dict(n_layers_external=1, n_layers_internal=2, n_hidden=32,
+                encoder=(3, 16))
+DIFF_N = 80
+DIFF_MATRICES = 1000
+# The JAX package's values for the committed model on the CPU, from
+# `references()` in tests/test_torch_chip_constants.py: the grid-path
+# `loss_terms` of the 100-graph test split of cosine_diffusion_dataset(
+# 1000, n=80, max_freq=3.0, seed=41), `ood_extrapolation(n=80)` and
+# `freq_study_errors(n=80, max_freq=4.0)` (errors[ix, iy]).
+JAX_CPU_TEST_LOSS = 0.002717547817155719
+JAX_CPU_OOD_LOSS = [0.006867539137601852,
+                    0.00950419157743454,
+                    0.010520867072045803,
+                    0.010939635336399078,
+                    0.010986384004354477,
+                    0.010991080664098263]
+JAX_CPU_FREQ_ERRORS = [
+    [0.001409116666764021, 0.0005773191805928946, 0.001171343494206667,
+     0.002232806058600545, 0.0037843959871679544, 0.0057602813467383385,
+     0.008268242701888084, 0.011322351172566414, 0.014707705937325954],
+    [0.0005714561557397246, 0.0003221975639462471, 0.0005483783897943795,
+     0.000947202555835247, 0.0015254224417731166, 0.0022761644795536995,
+     0.0032175928354263306, 0.0043470109812915325, 0.005661407019942999],
+    [0.0011491448385640979, 0.0005367913981899619, 0.000766088196542114,
+     0.0011685780482366681, 0.0017506094882264733, 0.00250517507083714,
+     0.003450836753472686, 0.004583138506859541, 0.005899796728044748],
+    [0.002145924838259816, 0.000906778615899384, 0.001139896921813488,
+     0.0015474268002435565, 0.0021348977461457253, 0.0028962877113372087,
+     0.003846995998173952, 0.004983755759894848, 0.006303347647190094],
+    [0.0035750041715800762, 0.0014341555070132017, 0.0016716340323910117,
+     0.002085048006847501, 0.002678727963939309, 0.0034503021743148565,
+     0.004405217710882425, 0.005547820590436459, 0.006869139615446329],
+    [0.005450617987662554, 0.0021276241168379784, 0.002369298366829753,
+     0.002789388643577695, 0.0033920302521437407, 0.004171018488705158,
+     0.005129970144480467, 0.0062751686200499535, 0.007599781733006239],
+    [0.00777528015896678, 0.0029854385647922754, 0.003231479087844491,
+     0.0036569759249687195, 0.004264878574758768, 0.005048619583249092,
+     0.006015310063958168, 0.007161677815020084, 0.008483413606882095],
+    [0.010601948015391827, 0.004013735335320234, 0.004264005459845066,
+     0.004694053437560797, 0.0053071510046720505, 0.006097098346799612,
+     0.007064604666084051, 0.00821129884570837, 0.009530731476843357],
+    [0.013858187012374401, 0.0052039953880012035, 0.005457418505102396,
+     0.005890699103474617, 0.006504396442323923, 0.007299221586436033,
+     0.00826410111039877, 0.009408739395439625, 0.0107170594856143]]
+# the learned D^-1 against the artifact's (TPU, bf16-rounded matmuls): the
+# carried weights reach 1.54e-2 on its 150 test matrices; phase 15 holds
+# them within twice that
+DINV_RTOL = 3e-2
+EIGEN_EXACT = ("evals_A", "evals_DinvA", "evals_TwoThirds_DinvA",
+               "evals_opt_DinvA", "diag_A", "diag_opt_Dinv")
 
 
 def emit(obj) -> None:
@@ -2003,6 +2106,238 @@ def gn_phases(A, plain, fast, b, x_plain, S, t_setup, norm_row,
               nvidia_smi=smi))
 
 
+def rel_gap(got, want) -> float:
+    """max |got - want| / |want| elementwise."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def f32_on(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+
+def diffusion_data(dev, smi):
+    """Phase 26: the diffusion model's dataset at the artifact's size and
+    its split; returns (dataset, test split)."""
+    t0 = time.perf_counter()
+    ds = cosine_diffusion_dataset(DIFF_MATRICES, n=DIFF_N, max_freq=3.0,
+                                  seed=41, cache_dir=None, device=dev)
+    host_s = time.perf_counter() - t0
+    # the 70/20/10 split as `train` derives it
+    n_tr, n_va = int(0.7 * ds.n_graphs), int(0.2 * ds.n_graphs)
+    perm = np.random.default_rng(41).permutation(ds.n_graphs)
+    tr, va, te = (ds.select(perm[:n_tr]), ds.select(perm[n_tr:n_tr + n_va]),
+                  ds.select(perm[n_tr + n_va:]))
+    lay, _, kind = choose_edge_layout(ds.template_nodiag,
+                                      grid_shape=(DIFF_N, DIFF_N))
+    require(kind == "grid" and lay.k == 8, (kind, lay.k))
+    require(bool(np.isfinite(ds.vals).all()) and ds.targets.shape == (
+        DIFF_MATRICES, DIFF_N * DIFF_N, 2), "dataset shapes")
+    emit(dict(phase="diffusion_data", matrices=ds.n_graphs,
+              vertices=ds.template.n_rows, nnz=ds.template.nnz,
+              offdiag_edges=ds.template_nodiag.nnz, layout=kind, k=lay.k,
+              split=[tr.n_graphs, va.n_graphs, te.n_graphs],
+              host_s=host_s, pool=pool_kind(DIFF_MATRICES),
+              nvidia_smi=smi))
+    return ds, te
+
+
+def diffusion_serve(dev, ds, te, smi) -> DiffusionGNN:
+    """Phase 27: the committed model served on the card; returns it."""
+    with open(os.path.join(DIFF_ARTIFACT, "results.json")) as f:
+        results = json.load(f)
+    model = load_diffusion_params_npz(
+        os.path.join(DIFF_ARTIFACT, "params.npz"),
+        DiffusionGNN(**DIFF_CFG, device=dev))
+    rel = edge_features(ds, DIFF_N)
+    apply_b, pack = make_apply_banded(model, ds, rel, (DIFF_N, DIFF_N))
+    ovb, d, g, y = (f32_on(a, dev) for a in (
+        pack(te.offdiag_vals), te.diags, te.globals_, te.targets))
+
+    def forward():
+        with torch.no_grad():
+            return apply_b(ovb, d, g)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pred = forward()
+    loss = float(loss_terms(pred, y))
+    peak = torch.cuda.max_memory_allocated() - base
+    require(tuple(pred.shape) == (te.n_graphs, DIFF_N * DIFF_N, 2)
+            and bool(torch.isfinite(pred).all()), tuple(pred.shape))
+    gap_jax = abs(loss - JAX_CPU_TEST_LOSS) / JAX_CPU_TEST_LOSS
+    gap_art = abs(loss - results["test_loss"]) / results["test_loss"]
+    require(gap_jax <= 1e-4, (loss, JAX_CPU_TEST_LOSS))
+    require(gap_art <= 0.10, (loss, results["test_loss"]))
+    # the production grid path against the edge-order path, 4 graphs
+    apply_e = make_apply(model, ds, rel)
+    with torch.no_grad():
+        pe = apply_e(f32_on(te.offdiag_vals[:4], dev), d[:4], g[:4])
+    err = (pred[:4] - pe).abs()
+    require(bool((err <= 1e-5 + 1e-4 * pe.abs()).all()), float(err.max()))
+    ms = cuda_ms(forward, iters=10, warmup=2)
+    busy = profile_cycles(lambda c: [forward() for _ in range(c)])
+    emit(dict(phase="diffusion_serve", graphs=te.n_graphs,
+              test_loss=loss, jax_cpu_test_loss=JAX_CPU_TEST_LOSS,
+              rel_gap_jax_cpu=gap_jax,
+              results_json_test_loss=results["test_loss"],
+              rel_gap_results_json=gap_art,
+              grid_vs_edge_max_abs_err=float(err.max()),
+              ms_per_forward=ms,
+              device_busy_ms_per_forward=busy["device_busy_ms_per_cycle"],
+              idle_share=1.0 - busy["device_busy_ms_per_cycle"] / ms,
+              device_ops_per_forward=busy["launches_per_cycle"],
+              top_kernels_per_forward=busy["top_kernels_per_cycle"][:6],
+              peak_mem_bytes_above_inputs=peak, nvidia_smi=smi))
+    return model
+
+
+def diffusion_eval(dev, model, smi) -> None:
+    """Phase 28: the OOD sweep and the frequency study on the card."""
+    with open(os.path.join(DIFF_ARTIFACT, "results.json")) as f:
+        by_decade = json.load(f)["ood_loss_by_decade"]
+    t0 = time.perf_counter()
+    ood = ood_extrapolation(None, model, n=DIFF_N)
+    ood_s = time.perf_counter() - t0
+    require(bool(np.isfinite(ood["loss"]).all()), ood["loss"])
+    require(rel_gap(ood["loss"], JAX_CPU_OOD_LOSS) <= 1e-4,
+            (ood["loss"].tolist(), JAX_CPU_OOD_LOSS))
+    t0 = time.perf_counter()
+    freqs, errors = freq_study_errors(None, model, n=DIFF_N, max_freq=4.0)
+    freq_s = time.perf_counter() - t0
+    require(errors.shape == (9, 9) and bool(np.isfinite(errors).all()),
+            errors.shape)
+    require(rel_gap(errors, JAX_CPU_FREQ_ERRORS) <= 1e-4,
+            rel_gap(errors, JAX_CPU_FREQ_ERRORS))
+    with np.load(os.path.join(DIFF_ARTIFACT, "freq_study.npz")) as z:
+        require(np.array_equal(freqs, z["freqs"]), freqs)
+        freq_art = z["errors"]
+    emit(dict(phase="diffusion_eval", ood_alpha=ood["alpha"].tolist(),
+              ood_loss=ood["loss"].tolist(),
+              ood_rel_gap_jax_cpu=rel_gap(ood["loss"], JAX_CPU_OOD_LOSS),
+              ood_rel_gap_artifact=rel_gap(ood["loss"], [
+                  by_decade[f"{a:.0e}"] for a in ood["alpha"]]),
+              freq_mean_err=float(errors.mean()),
+              freq_max_err=float(errors.max()),
+              freq_rel_gap_jax_cpu=rel_gap(errors, JAX_CPU_FREQ_ERRORS),
+              freq_rel_gap_artifact=rel_gap(errors, freq_art),
+              ood_s=ood_s, freq_s=freq_s, nvidia_smi=smi))
+
+
+def diffusion_train(dev, ds, smi) -> None:
+    """Phase 29: `train` on the card for 3 epochs at the artifact's
+    configuration; then ms per step and the idle share of its steps."""
+    cfg = TrainDiffusionConfig(num_matrices=DIFF_MATRICES, n_mesh=DIFF_N,
+                               max_freq=3.0, epochs=3, batch_size=64,
+                               lr=1e-2, seed=41, cache_dir=None,
+                               log_every=0, **DIFF_CFG)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, hist = train_diffusion(cfg, dataset=ds, device=dev)
+    train_s = time.perf_counter() - t0
+    # the whole run: its splits on the card, 200 validation graphs a call
+    train_peak = torch.cuda.max_memory_allocated() - base
+    losses = hist["train_loss"] + hist["val_loss"] + [hist["test_loss"]]
+    require(bool(np.isfinite(losses).all()), hist)
+    require(hist["train_loss"][2] < hist["train_loss"][0], hist)
+
+    # the step alone: one batch of 64 training graphs, steps 2 onward
+    rel = edge_features(ds, DIFF_N)
+    apply_b, pack = make_apply_banded(model, ds, rel, (DIFF_N, DIFF_N))
+    idx = np.random.default_rng(41).permutation(ds.n_graphs)[:64]
+    part = ds.select(idx)
+    batch = tuple(f32_on(a, dev) for a in (
+        pack(part.offdiag_vals), part.diags, part.globals_, part.targets))
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    plateau = PlateauScale(opt)
+
+    def step():
+        return train_step(model, opt, plateau,
+                          lambda ov, d, g, y: loss_terms(apply_b(ov, d, g),
+                                                         y),
+                          batch, np.inf)
+
+    first = float(step())  # step 1: the allocator's first pass
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(step, iters=9, warmup=0)
+    peak = torch.cuda.max_memory_allocated() - base
+    busy = profile_cycles(lambda c: [step() for _ in range(5 * c)])
+    busy_ms = busy["device_busy_ms_per_cycle"] / 5
+    require(np.isfinite(first), first)
+    emit(dict(phase="diffusion_train", tf32=False, epochs=3,
+              steps_per_epoch=int(0.7 * DIFF_MATRICES) // 64,
+              history=hist, train_s=train_s,
+              train_peak_mem_bytes=train_peak,
+              ms_per_step=ms, device_busy_ms_per_step=busy_ms,
+              idle_share=1.0 - busy_ms / ms,
+              top_kernels_per_5_steps=busy["top_kernels_per_cycle"][:6],
+              peak_mem_bytes_above_inputs=peak, nvidia_smi=smi))
+
+
+def eigen_phase(dev, smi) -> None:
+    """Phase 30: the Jacobi model's dense eigen analysis on 8 test
+    matrices, the MLP on the card, against test_eigenvalues.npz.
+
+    The non-learned arrays are host float64 on the same float32 matrices:
+    equal to rtol 1e-8. The learned ones carry the MLP, whose TPU matmuls
+    rounded through bf16: D^-1 within DINV_RTOL (delta) of the artifact's.
+    A relative change E of D^-1 (|E_ii| <= delta) changes the restricted
+    matrix X = V^T omega D^-1 A V by V^T E omega D^-1 A V, of 2-norm at most
+    delta ||omega D^-1 A||_2 <= delta sqrt(||.||_1 ||.||_inf) (V has
+    orthonormal columns); each sorted |eigenvalue| of I - X is held to
+    move by no more (Bauer-Fike with a condition number of 1)."""
+    t0 = time.perf_counter()
+    ds = small_band_dataset(1000, n=38, h_low=5e-4, seed=54681,
+                            cache_dir=None, device=dev)
+    data_s = time.perf_counter() - t0
+    perm = np.random.default_rng(54681).permutation(ds.n_graphs)
+    te = ds.select(perm[850:1000])
+    t0 = time.perf_counter()
+    got = eigen_analysis(os.path.join(ARTIFACT, "params.npz"), te,
+                         max_graphs=8)
+    eig_s = time.perf_counter() - t0
+    with np.load(os.path.join(ARTIFACT, "test_eigenvalues.npz")) as z:
+        want = {k: z[k][:8] for k in z.files}
+    exact = {}
+    for k in EIGEN_EXACT + ("hs", "band_locs"):
+        err = np.abs(got[k] - want[k])
+        exact[k] = float(np.max(err / np.abs(want[k])))
+        require(bool((err <= 1e-8 * np.abs(want[k])).all()), (k, exact[k]))
+    dinv_gap = np.abs(got["diag_learn_Dinv"] - want["diag_learn_Dinv"]) / \
+        np.abs(want["diag_learn_Dinv"])
+    require(float(dinv_gap.max()) <= DINV_RTOL, float(dinv_gap.max()))
+    evals_gap, evals_tol = [], []
+    for i in range(8):
+        dinv = got["diag_learn_Dinv"][i]
+        A = te.template.with_values(te.vals[i].astype(np.float32)).to_dense(
+        ).double().cpu().numpy()
+        X = dinv[:, None] * A   # omega D^-1 A (diag_learn_Dinv = omega / d)
+        tol = DINV_RTOL * np.sqrt(np.abs(X).sum(0).max()
+                                  * np.abs(X).sum(1).max())
+        gap = float(np.abs(got["evals_learn_DinvA"][i]
+                           - want["evals_learn_DinvA"][i]).max())
+        require(gap <= tol, (i, gap, tol))
+        evals_gap.append(gap)
+        evals_tol.append(float(tol))
+    damping = {k: dict(port=got[k].max(axis=1).tolist(),
+                       artifact=want[k].max(axis=1).tolist())
+               for k in ("evals_learn_DinvA", "evals_DinvA",
+                         "evals_TwoThirds_DinvA", "evals_opt_DinvA")}
+    emit(dict(phase="eigen", matrices=8, n=int(te.template.n_rows),
+              exact_max_rel_err=exact,
+              dinv_learn_max_rel_gap=float(dinv_gap.max()),
+              dinv_learn_mean_rel_gap=float(dinv_gap.mean()),
+              evals_learn_max_abs_gap=evals_gap,
+              evals_learn_tolerance=evals_tol,
+              high_freq_damping=damping, dataset_s=data_s,
+              eigen_s=eig_s, nvidia_smi=smi))
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
@@ -2203,6 +2538,12 @@ def main() -> int:
     kernels.append(norm_row)
     jacobi_weights(dev)
     train_phase(dev, smi)
+    ds, te = diffusion_data(dev, smi)
+    model = diffusion_serve(dev, ds, te, smi)
+    diffusion_eval(dev, model, smi)
+    diffusion_train(dev, ds, smi)
+    del ds, te, model
+    eigen_phase(dev, smi)
     emit({"kernels": kernels})
     # count: the cards visible to the process; the run drives card 0 only
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

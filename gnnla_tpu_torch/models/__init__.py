@@ -1,9 +1,12 @@
 """Solver compositions: the fixed kernels of the paper in their GN-block
 forms (`*_gnn`, SOC, direct interpolation) and fused forms, the two-grid
 V-cycle and its grid paths, the multilevel hierarchies and the Krylov
-solvers; the learned Jacobi diagonal."""
+solvers; the learned Jacobi diagonal and the diffusion-coefficient
+GNN."""
 
 from gnnla_tpu_torch.models.chebyshev import chebyshev, chebyshev_gnn
+from gnnla_tpu_torch.models.diffusion_gnn import (DiffusionGNN, MLPStack,
+                                                  init_diffusion_gnn)
 from gnnla_tpu_torch.models.direct_interp import direct_interp
 from gnnla_tpu_torch.models.geometric import (GeometricVCycle,
                                               make_geometric_vcycle)
@@ -52,4 +55,5 @@ __all__ = [
     "cg", "amg_pcg", "mg_pcg",
     "TrainableJacobiMLP", "init_params", "jacobi_diag_features",
     "jacobi_diag_features_banded", "predict_diag",
+    "DiffusionGNN", "MLPStack", "init_diffusion_gnn",
 ]

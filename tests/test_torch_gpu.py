@@ -1079,3 +1079,110 @@ def test_gn_batched_on_the_card(cuda):
                 off += op.n_rows
     _close(outs["cuda"].vertices, outs["cpu"].vertices.to(cuda))
     _close(outs["cuda"].globals_, outs["cpu"].globals_.to(cuda))
+
+
+def _diffusion_serve(dev, n, n_graphs=4):
+    """The committed diffusion model's grid-path and edge-path outputs on
+    the first graphs of the seed-41 dataset at n x n, on `dev`."""
+    from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
+    from gnnla_tpu_torch.training.checkpoints import \
+        load_diffusion_params_npz
+    from gnnla_tpu_torch.training.datasets import cosine_diffusion_dataset
+    from gnnla_tpu_torch.training.train_diffusion import (edge_features,
+                                                          make_apply,
+                                                          make_apply_banded)
+
+    ds = cosine_diffusion_dataset(n_graphs, n=n, seed=41, device=dev)
+    model = load_diffusion_params_npz(
+        "artifacts/diffusion/params.npz",
+        DiffusionGNN(1, 2, 32, encoder=(3, 16), device=dev))
+    rel = edge_features(ds, n)
+    apply_b, pack = make_apply_banded(model, ds, rel, (n, n))
+
+    def put(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    with torch.no_grad():
+        grid = apply_b(put(pack(ds.offdiag_vals)), put(ds.diags),
+                       put(ds.globals_))
+        edge = make_apply(model, ds, rel)(put(ds.offdiag_vals),
+                                          put(ds.diags), put(ds.globals_))
+    return grid, edge, put(ds.targets)
+
+
+@pytest.mark.parametrize("n", [16, 80])
+def test_diffusion_serve_on_the_card(cuda, n):
+    """The committed model on the card: the grid path against the edge
+    path there and against the port's CPU path (rtol 1e-4, atol 1e-5)."""
+    from gnnla_tpu_torch.training.train_diffusion import loss_terms
+
+    grid, edge, y = _diffusion_serve(cuda, n)
+    grid_cpu, _, y_cpu = _diffusion_serve(torch.device("cpu"), n)
+    torch.cuda.synchronize()
+    for got, want in ((grid, edge), (grid.cpu(), grid_cpu)):
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-5)
+    assert float(loss_terms(grid, y)) == pytest.approx(
+        float(loss_terms(grid_cpu, y_cpu)), rel=1e-4)
+
+
+def test_diffusion_train_on_the_card(cuda):
+    """Two epochs of `train` on the card and on the CPU from one set of
+    parameters: the same histories (rtol 1e-3: f32 sums in another order
+    compound through Adam)."""
+    from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
+    from gnnla_tpu_torch.training.datasets import cosine_diffusion_dataset
+    from gnnla_tpu_torch.training.train_diffusion import (
+        TrainDiffusionConfig, train)
+
+    cfg = TrainDiffusionConfig(num_matrices=40, n_mesh=12, epochs=2,
+                               batch_size=8, n_layers_external=1,
+                               n_layers_internal=2, n_hidden=16,
+                               encoder=(3, 8), cache_dir=None, log_every=0)
+    init = DiffusionGNN(1, 2, 16, encoder=(3, 8), generator=5,
+                        device="cpu").state_dict()
+    hists = {}
+    for dev in (cuda, torch.device("cpu")):
+        ds = cosine_diffusion_dataset(40, n=12, seed=41, device=dev)
+        model, hists[dev.type] = train(cfg, dataset=ds, init_params=init,
+                                       device=dev)
+        assert next(model.parameters()).device.type == dev.type
+    for key in ("train_loss", "val_loss"):
+        assert np.isfinite(hists["cuda"][key]).all()
+        np.testing.assert_allclose(hists["cuda"][key], hists["cpu"][key],
+                                   rtol=1e-3)
+
+
+def test_diffusion_evaluation_on_the_card(cuda):
+    """`ood_extrapolation` and `freq_study_errors` on the card against the
+    CPU (rtol 1e-4)."""
+    from gnnla_tpu_torch.evaluation import (freq_study_errors,
+                                            ood_extrapolation)
+    from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
+
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = DiffusionGNN(2, 2, 8, encoder=(2, 4), decoder=(1, 4),
+                             generator=7, device=dev)
+        out[dev.type] = (ood_extrapolation(None, model, n=8)["loss"],
+                         freq_study_errors(None, model, n=8, max_freq=2.0)[1])
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_eigen_analysis_on_the_card(cuda):
+    """The MLP on the card, the eigenproblems on the host: the non-learned
+    arrays equal the CPU run's, the learned ones within rtol 1e-5."""
+    from gnnla_tpu_torch.evaluation import eigen_analysis
+    from gnnla_tpu_torch.training.datasets import small_band_dataset
+
+    params = "artifacts/jacobi/params.npz"
+    got = eigen_analysis(params, small_band_dataset(3, n=10, device=cuda))
+    want = eigen_analysis(params, small_band_dataset(3, n=10, device="cpu"))
+    for k in want:
+        if k in ("evals_learn_DinvA", "diag_learn_Dinv"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5,
+                                       atol=1e-6 * np.abs(want[k]).max())
+        else:
+            np.testing.assert_array_equal(got[k], want[k])

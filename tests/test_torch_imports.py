@@ -59,7 +59,14 @@ def test_port_files_found():
                  "gnnla_tpu_torch/models/chebyshev.py",
                  "gnnla_tpu_torch/models/power_method.py",
                  "gnnla_tpu_torch/models/soc.py",
-                 "gnnla_tpu_torch/models/direct_interp.py"):
+                 "gnnla_tpu_torch/models/direct_interp.py",
+                 "gnnla_tpu_torch/problems/diffusion_fem.py",
+                 "gnnla_tpu_torch/models/diffusion_gnn.py",
+                 "gnnla_tpu_torch/training/train_diffusion.py",
+                 "gnnla_tpu_torch/evaluation/__init__.py",
+                 "gnnla_tpu_torch/evaluation/eigen_analysis.py",
+                 "gnnla_tpu_torch/evaluation/ood.py",
+                 "gnnla_tpu_torch/evaluation/freq_study.py"):
         assert must in files
 
 
@@ -78,7 +85,11 @@ def test_import_pulls_in_no_jax():
             "gnnla_tpu_torch.training, gnnla_tpu_torch.amg.aggregation, "
             "gnnla_tpu_torch.models.multigrid, gnnla_tpu_torch.models.krylov, "
             "gnnla_tpu_torch.problems.fem_heateqn, "
-            "gnnla_tpu_torch.training.checkpoints, gnnla_tpu_torch.core; "
+            "gnnla_tpu_torch.training.checkpoints, gnnla_tpu_torch.core, "
+            "gnnla_tpu_torch.problems.diffusion_fem, "
+            "gnnla_tpu_torch.models.diffusion_gnn, "
+            "gnnla_tpu_torch.training.train_diffusion, "
+            "gnnla_tpu_torch.evaluation; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -112,6 +123,26 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_jacobi(TrainJacobiConfig(num_matrices=2, n_mesh=6,
                                        cache_dir=None))
+    from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
+    from gnnla_tpu_torch.ops.band import BandLayout, BandPattern
+    from gnnla_tpu_torch.problems import cosine_diffusion_matrix
+    from gnnla_tpu_torch.training import (TrainDiffusionConfig,
+                                          cosine_diffusion_dataset,
+                                          frequency_study_dataset,
+                                          train_diffusion)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DiffusionGNN(1, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cosine_diffusion_matrix((1.0, 1.0, 1.0, 1.0), 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cosine_diffusion_dataset(2, n=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        frequency_study_dataset(n=4, max_freq=0.5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_diffusion(TrainDiffusionConfig(num_matrices=2, n_mesh=4,
+                                             cache_dir=None))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BandPattern.from_layout(BandLayout(laplacian_2d(3, device="cpu")))
     # asked for explicitly, the CPU runs the plain versions
     assert laplacian_2d(4, device="cpu").device.type == "cpu"
 
