@@ -7,7 +7,11 @@ Phases, one JSON line each on stdout:
                nvidia-smi's `name, power.limit` line.
   2. build   — builds the kernels from gnnla_tpu_torch/csrc (nvcc, sm_90a)
                and prints the build seconds and ptxas register, shared
-               memory and spill lines.
+               memory and spill lines; then kernel K5, the health probe
+               (`utils/health.py::health_probe`, y = 2 x on one 8 x 128
+               block): y == 2 bitwise, one launch; K5 bitwise its plain
+               version on random x, its flushed time, bound and
+               `torch.mul(x, 2)`'s time.
   3. setup   — the 1024^2 FD Laplacian, `setup_twogrid(theta=0.25, cljp,
                seed=0)`, `setup_with_dia(kernel=True)`, `setup_with_stream_p`;
                asserts A and Ac are on kernel K1 and P on kernel K2, and
@@ -226,6 +230,29 @@ and reductions) and the evaluation tools of both learned models:
                     spectra within the bound that gap implies (see
                     `eigen_phase`); per-row high-frequency damping beside
                     the npz's.
+The rest of the port's single-device surface:
+ 31. bsr          — `to_bsr` of the stream phase's A_rcm (permute by its
+                    RCM order), B = 128, on the card: blocks, bytes, slot
+                    waste and host build seconds; the SpMV against K2 and
+                    the M = 20 SpMM against K3 on the same CSR (rtol 1e-5,
+                    atol 1e-5 max|y|), `diagonal()` exactly A_rcm's; both
+                    times (L2 flushed) beside K2's and K3's, their bounds
+                    and peak memory; scipy's RCM (`rcm_permutation`,
+                    `permute`) on the shuffled A needs fewer blocks than
+                    the shuffled pattern, which `to_bsr` refuses when it
+                    needs more than max_blocks. TF32 must be off.
+ 32. cli          — `python -m gnnla_tpu_torch.cli` in subprocesses on the
+                    card with a temporary cache, run at once with phase
+                    33's: `diffusion --num-combos` (5), `diffusion`
+                    combination 1 on 100 matrices at
+                    n = 80 for 2 epochs (finite losses, the test loss
+                    printed), `jacobi --epochs 1` at the defaults (1000
+                    matrices, n = 38; finite losses, the test loss), and
+                    `jacobi --num-matrices 12`, which must fail with the
+                    split message before building data; seconds of each.
+ 33. examples     — `python -m gnnla_tpu_torch.examples.run_all` on the
+                    card at default sizes: all 12 pass; seconds of each.
+Then the script's seconds (`script`).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
 Any failed check raises, and the script exits non-zero.
@@ -242,6 +269,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -275,6 +303,8 @@ from gnnla_tpu_torch.ops.dia import (DIAOperator, dia_matvec, dia_transpose,
                                      to_dia)
 from gnnla_tpu_torch.ops.dia_spmv import (DiaKernelOperator,
                                           dia_kernel_operator)
+from gnnla_tpu_torch.examples.run_all import MODULES as EXAMPLES
+from gnnla_tpu_torch.ops.bsr import permute, rcm_permutation, to_bsr
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stencil import (stencil_apply_plain,
                                          stencil_matvec, stencil_transpose)
@@ -309,6 +339,9 @@ from gnnla_tpu_torch.training.train_diffusion import \
     train as train_diffusion
 from gnnla_tpu_torch.training.spectral_loss import (
     damping_factor_gelfand, damping_factor_gelfand_spmm, uniform_probes)
+from gnnla_tpu_torch.utils.health import (SHAPE as HEALTH_SHAPE,
+                                          HealthCall, health_cuda,
+                                          health_plain, health_probe)
 from gnnla_tpu_torch.training.train_jacobi import (PlateauScale,
                                                    TrainJacobiConfig,
                                                    _draw_probes,
@@ -333,6 +366,9 @@ K2_ROW = ("csr_spmv", "gnnla_tpu_torch/csrc/csr_spmv.cu",
           "gnnla_tpu/ops/pallas_stream.py:479")
 K4_ROW = ("gnnla_tpu_torch/csrc/stencil.cu",
           "gnnla_tpu/ops/pallas_stencil.py:126")
+K5_ROW = ("gnnla_tpu_torch/csrc/health.cu", "bench.py:148")
+BSR_BLOCK = 128
+BSR_MAX_BLOCKS = 1 << 22  # to_bsr's default
 PCG_ITERS = 30
 CONV_SIZES = (64, 128, 256)
 OMEGA = 2.0 / 3.0
@@ -2338,10 +2374,214 @@ def eigen_phase(dev, smi) -> None:
               eigen_s=eig_s, nvidia_smi=smi))
 
 
+def health_row(lib, launches: int, flush: torch.Tensor) -> dict:
+    """K5's row of the kernels line: y = 2 x on one (8, 128) f32 block,
+    bitwise its plain version on random x; `ms` is the raw launch's, as
+    for K1-K4, and `wrapper_ms` the wrapper's (checks, allocation, launch).
+    Bound = 8 KB moved (4 KB read, 4 KB written) at the memory rate, so
+    the launch sets the time."""
+    x = torch.from_numpy(np.random.default_rng(53).standard_normal(
+        HEALTH_SHAPE).astype(np.float32)).to(flush.device)
+    y, want = health_cuda(x), health_plain(x)
+    torch.cuda.synchronize()
+    require(torch.equal(y, want), "K5 is not bitwise 2 * x")
+    require(torch.equal(torch.mul(x, 2), want), "torch.mul(x, 2) != 2 * x")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        _build.check(lib.health_f32(x.data_ptr(), y.data_ptr(), x.numel(),
+                                    stream), "K5 raw")
+    bound_ms, bound_by = bound(2 * x.numel() * 4, x.numel())
+    return dict(name="health[8x128]", route="cuda", source=K5_ROW[0],
+                replaces=K5_ROW[1], launches=launches,
+                max_abs_err=float((y - want).abs().max()),
+                ms=cuda_ms_cold(raw, 20, flush),
+                plain_ms=cuda_ms_cold(lambda: health_plain(x), 20, flush),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms_cold(lambda: torch.mul(x, 2), 20, flush),
+                wrapper_ms=cuda_ms_cold(lambda: health_cuda(x), 20, flush))
+
+
+def peak_above(fn) -> int:
+    """Bytes the card's allocator held at peak during fn() above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def bsr_phase(A_p, S, flush, smi) -> None:
+    """Phase 31: BSR (ops/bsr.py) on the stream leg's RCM-ordered A at
+    1,048,576 rows against K2 and K3 on the same CSR, and RCM against the
+    shuffled pattern's block count."""
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the BSR block product must run in full f32 (TF32 is on)")
+    dev, n, B, m = A_p.device, A_p.n_rows, BSR_BLOCK, M_PROBES
+    t0 = time.perf_counter()
+    A_rcm, _ = permute(A_p, S.perm.cpu().numpy())
+    t_permute = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bsr = to_bsr(A_rcm, block_size=B)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    nb = bsr.blocks.shape[0]
+    blocks_bytes = bsr.blocks.numel() * bsr.blocks.element_size()
+    idx_bytes = 2 * nb * bsr.block_rows.element_size()
+
+    gen = np.random.default_rng(59)
+    x = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(dev)
+    X = torch.from_numpy(gen.standard_normal((n, m)).astype(
+        np.float32)).to(dev)
+    csr = S.fwd  # the CSR of A_rcm: K2 on x, K3 on X
+    errs = {"spmv_vs_k2": compare(bsr @ x, csr(x), "BSR SpMV against K2"),
+            "spmm_vs_k3": compare(bsr @ X, csr(X), "BSR SpMM against K3")}
+    diag_exact = bool(torch.equal(bsr.diagonal(), A_rcm.diagonal()))
+    require(diag_exact, "BSR diagonal() differs from A_rcm's")
+
+    lib = _build.load()
+    _, k2_bytes, k2_flops = csr_raw(lib, csr, x)
+    k3_bytes = csr.nnz * 8 + (n + 1) * 4 + 2 * n * m * 4
+    times = {}
+    for key, fn, kern, bytes_moved, flops, k_bytes, k_flops in (
+            ("spmv", lambda: bsr @ x, lambda: csr(x),
+             blocks_bytes + idx_bytes + 2 * n * 4, 2 * nb * B * B,
+             k2_bytes, k2_flops),
+            ("spmm", lambda: bsr @ X, lambda: csr(X),
+             blocks_bytes + idx_bytes + 2 * n * m * 4, 2 * nb * B * B * m,
+             k3_bytes, 2 * csr.nnz * m)):
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        k_bound_ms, k_bound_by = bound(k_bytes, k_flops)
+        times[key] = dict(
+            ms=cuda_ms_cold(fn, 10, flush), bound_ms=bound_ms,
+            bound_by=bound_by, bytes=bytes_moved, flops=flops,
+            peak_bytes=peak_above(fn),
+            kernel_ms=cuda_ms_cold(kern, 20, flush),
+            kernel_bound_ms=k_bound_ms, kernel_bound_by=k_bound_by,
+            kernel="K2" if key == "spmv" else "K3")
+        times[key]["ms_over_kernel"] = (times[key]["ms"]
+                                        / times[key]["kernel_ms"])
+    del bsr
+
+    # RCM (scipy) on the shuffled operator against its block count,
+    # counted on the host. The shuffled pattern's BSR would not fit on the
+    # card (some 4e6 blocks of 64 KB): `to_bsr` is held to the blocks half
+    # the free memory holds, and must refuse it before allocating
+    rows, cols, _ = A_p.host_coo()
+    nbc = -(-n // B)
+    nb_shuf = int(np.unique((rows // B) * nbc + cols // B).size)
+    cap = min(BSR_MAX_BLOCKS,
+              torch.cuda.mem_get_info(dev)[0] // 2 // (B * B * 4))
+    refusal = None
+    try:
+        to_bsr(A_p, block_size=B, max_blocks=cap)
+    except ValueError as e:
+        refusal = str(e)
+    require(nb_shuf > cap and refusal == f"pattern needs {nb_shuf} blocks "
+            f"(> {cap})", (nb_shuf, cap, refusal))
+    t0 = time.perf_counter()
+    perm2 = rcm_permutation(A_p)
+    A_rcm2, _ = permute(A_p, perm2)
+    t_rcm = time.perf_counter() - t0
+    bsr2 = to_bsr(A_rcm2, block_size=B)
+    nb_rcm2 = bsr2.blocks.shape[0]
+    del bsr2, A_rcm2
+    require(nb_rcm2 < nb_shuf, (nb_rcm2, nb_shuf))
+    emit(dict(phase="bsr", n=n, nnz=A_rcm.nnz, block_size=B, blocks=nb,
+              bytes=blocks_bytes, slot_waste=nb * B * B / A_rcm.nnz,
+              permute_s=t_permute, build_s=t_build,
+              matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+              results=list(errs.values()), diagonal_exact=diag_exact,
+              times=times, shuffled_blocks=nb_shuf,
+              shuffled_max_blocks=cap, shuffled_refusal=refusal,
+              scipy_rcm_blocks=nb_rcm2, scipy_rcm_s=t_rcm, nvidia_smi=smi))
+
+
+def run_module(args, timeout: int) -> tuple:
+    """(completed process, seconds) of `python -m <args>` from the root of
+    the checkout, on the card."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    return p, time.perf_counter() - t0
+
+
+def finite_losses(out: str, what: str) -> list:
+    """The epoch and test-loss lines of a trainer's output; each number
+    finite, and a test loss printed."""
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith(("epoch ", "test loss"))]
+    vals = [float(v) for ln in lines for v in re.findall(
+        r"(?:train|val|loss:) (\S+)", ln)]
+    require(any(ln.startswith("test loss") for ln in lines)
+            and vals and all(np.isfinite(vals)), (what, lines))
+    return lines
+
+
+def cli_examples_phases(smi) -> None:
+    """Phases 32-33: the port's CLI and the example twins, each a
+    `python -m` subprocess on the card; the five run at once (each
+    process spends seconds reaching the card and building its data on
+    the host), so their seconds include sharing the host and the card."""
+    with tempfile.TemporaryDirectory() as cache:
+        runs = {  # key -> module and arguments
+            "num_combos": ["diffusion", "--num-combos"],
+            # the committed model's combination and mesh at full width
+            "diffusion": ["diffusion", "--start-index", "1", "--end-index",
+                          "2", "--num-matrices", "100", "--n-mesh", "80",
+                          "--epochs", "2"],
+            "jacobi": ["jacobi", "--epochs", "1"],
+            "refusal": ["jacobi", "--num-matrices", "12"]}
+        jobs = {k: ["gnnla_tpu_torch.cli", *v, "--cache-dir", cache]
+                for k, v in runs.items()}
+        jobs["examples"] = ["gnnla_tpu_torch.examples.run_all"]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futs = {k: pool.submit(run_module, v, 300)
+                    for k, v in jobs.items()}
+            done = {k: f.result() for k, f in futs.items()}
+        wall = time.perf_counter() - t0
+        out = {k: dict(argv=runs[k], rc=done[k][0].returncode,
+                       seconds=done[k][1]) for k in runs}
+
+        p = done["num_combos"][0]
+        require(p.returncode == 0 and p.stdout.strip()
+                == "There are 5 total combinations", (p.stdout, p.stderr))
+        p = done["diffusion"][0]
+        require(p.returncode == 0, p.stderr[-4000:])
+        require(p.stdout.startswith("Combination 1: seed=41 encoder=(3, 16)"
+                                    " decoder=None ext=1 int=2 hidden=32"),
+                p.stdout)
+        out["diffusion"]["lines"] = finite_losses(p.stdout, "diffusion")
+        p = done["jacobi"][0]
+        require(p.returncode == 0, p.stderr[-4000:])
+        out["jacobi"]["lines"] = finite_losses(p.stdout, "jacobi")
+        p = done["refusal"][0]
+        require(p.returncode != 0 and "at least 851 matrices" in p.stderr,
+                (p.returncode, p.stderr[-2000:]))
+        require(not any(f.startswith("smallband_12_")
+                        for f in os.listdir(cache)),
+                "the refused run built data")
+    emit(dict(phase="cli", runs=out, wall_s=wall, nvidia_smi=smi))
+
+    p, secs = done["examples"]
+    ok = dict(re.findall(r"^--- (\w+) ok \(([\d.]+)s\)$", p.stdout,
+                         re.MULTILINE))
+    require(p.returncode == 0 and sorted(ok) == sorted(EXAMPLES),
+            (p.returncode, p.stdout[-4000:], p.stderr[-4000:]))
+    emit(dict(phase="examples", passed=len(ok), seconds=secs,
+              example_s={k: float(v) for k, v in ok.items()},
+              nvidia_smi=smi))
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
     gc.disable()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -2364,8 +2604,14 @@ def main() -> int:
 
     lib = _build.load(force=True)
     info = _build.build_info()
+    probe = HealthCall()  # K5's launches on the build phase's probe
+    probe_s = health_probe(dev, call=probe)
+    k5_row = health_row(lib, probe.launches, flush=torch.ones(
+        64 * 2 ** 20, device=dev))
+    require(k5_row["launches"] == 1, k5_row)
     emit(dict(phase="build", seconds=info["seconds"], path=info["path"],
-              ptxas=info["ptxas"]))
+              ptxas=info["ptxas"], health_probe_s=probe_s, health=k5_row,
+              nvidia_smi=smi))
 
     # ---------------------------------------------------------- setup
     t0 = time.perf_counter()
@@ -2544,6 +2790,12 @@ def main() -> int:
     diffusion_train(dev, ds, smi)
     del ds, te, model
     eigen_phase(dev, smi)
+    bsr_phase(A_p, S, flush, smi)
+    del A_p, S
+    torch.cuda.empty_cache()  # the subprocesses below share the card
+    cli_examples_phases(smi)
+    kernels.append(k5_row)
+    emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})
     # count: the cards visible to the process; the run drives card 0 only
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

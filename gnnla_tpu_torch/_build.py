@@ -23,7 +23,8 @@ from typing import List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("dia_spmv.cu", "csr_spmv.cu", "csr_spmm.cu", "stencil.cu")
+SOURCES = ("dia_spmv.cu", "csr_spmv.cu", "csr_spmm.cu", "stencil.cu",
+           "health.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC"]
 
@@ -117,6 +118,8 @@ def load(force: bool = False) -> ctypes.CDLL:
     lib.stencil_f32.restype = ci
     lib.stencil_f32.argtypes = [vp, ci, vp, ci, ci, ci, vp, vp, vp, vp, vp,
                                 ci, ci, ci, ci, ci, ci, vp]
+    lib.health_f32.restype = ci
+    lib.health_f32.argtypes = [vp, vp, ctypes.c_int64, vp]
     _info.update(path=lib_path, built=built, ptxas=report,
                  seconds=time.perf_counter() - t0)
     _lib = lib

@@ -1,6 +1,7 @@
 """Evaluation tools of the two learned models: the Jacobi smoother's dense
-eigen analysis, and the diffusion model's out-of-distribution sweep and
-frequency study. (The JAX package's plots, `viz.py`, are not ported.)"""
+eigen analysis, the diffusion model's out-of-distribution sweep and
+frequency study; their plots are `evaluation.viz` (matplotlib at first
+use), which the package does not re-export, as in the JAX package."""
 
 from gnnla_tpu_torch.evaluation.eigen_analysis import (eigen_analysis,
                                                        high_freq_modes,

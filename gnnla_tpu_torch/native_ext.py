@@ -2,18 +2,19 @@
 
 The port's own binding to the same `native/libgnnla_native.so` that
 gnnla_tpu.native_ext loads (importing that module would run
-gnnla_tpu/__init__.py and therefore jax). Only the entry points the
-ported slices use are bound: CLJP splitting, RCM ordering with the
-symmetric CSR permutation, and Vanek aggregation. When the library (or a symbol) is missing the
-callers run numpy/scipy instead — the same fallbacks the JAX package
-takes, so both packages produce identical coarse flags and orders.
+gnnla_tpu/__init__.py and therefore jax): COO coalescing, CSR row
+pointers, CLJP splitting, RCM ordering with the symmetric CSR
+permutation, and Vanek aggregation. When the library (or a symbol) is
+missing the callers run numpy/scipy instead — the same fallbacks the JAX
+package takes, so both packages produce identical arrays, coarse flags
+and orders.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -30,6 +31,12 @@ def _load() -> Optional[ctypes.CDLL]:
         return None
     lib = ctypes.CDLL(_LIB_PATH)
     i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.coalesce_coo.restype = ctypes.c_int64
+    lib.coalesce_coo.argtypes = [ctypes.c_int64, i64p, i64p,
+                                 ctypes.POINTER(ctypes.c_double),
+                                 ctypes.c_int64]
+    lib.csr_row_ptr.restype = None
+    lib.csr_row_ptr.argtypes = [ctypes.c_int64, i64p, ctypes.c_int64, i64p]
     lib.cljp_split.restype = None
     lib.cljp_split.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.c_uint64,
                                i64p]
@@ -53,6 +60,46 @@ def available() -> bool:
 
 def _i64p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def coalesce_coo(rows, cols, vals, n_cols_matrix: int
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Sort by (row, col), sum duplicates: (rows, cols, vals) as int64,
+    int64, float64. Native when built, numpy else.
+
+    The native routine rewrites its buffers in place, so copy here — callers
+    keep their arrays."""
+    rows = np.array(rows, dtype=np.int64, copy=True)
+    cols = np.array(cols, dtype=np.int64, copy=True)
+    vals = np.array(vals, dtype=np.float64, copy=True)
+    lib = _load()
+    if lib is not None:
+        n_out = lib.coalesce_coo(
+            len(rows), _i64p(rows), _i64p(cols),
+            vals.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            int(n_cols_matrix))
+        return rows[:n_out].copy(), cols[:n_out].copy(), vals[:n_out].copy()
+    # numpy fallback (the algorithm of SparseOperator.from_coo)
+    key = rows * n_cols_matrix + cols
+    order = np.argsort(key, kind="stable")
+    key, vals = key[order], vals[order]
+    uniq, inverse = np.unique(key, return_inverse=True)
+    summed = np.zeros(uniq.shape[0])
+    np.add.at(summed, inverse, vals)
+    return uniq // n_cols_matrix, uniq % n_cols_matrix, summed
+
+
+def csr_row_ptr(rows_sorted, n_rows: int) -> np.ndarray:
+    """int64 [n_rows + 1] CSR offsets of row-sorted COO rows."""
+    rows_sorted = np.ascontiguousarray(rows_sorted, dtype=np.int64)
+    out = np.zeros(n_rows + 1, dtype=np.int64)
+    lib = _load()
+    if lib is not None:
+        lib.csr_row_ptr(len(rows_sorted), _i64p(rows_sorted), n_rows,
+                        _i64p(out))
+        return out
+    np.add.at(out, rows_sorted + 1, 1)
+    return np.cumsum(out)
 
 
 def cljp_split(S_csr, seed: int = 0) -> np.ndarray:

@@ -1,7 +1,8 @@
-"""Kernels K1, K2, K3 and K4 against their plain PyTorch versions on the
-card, their gradients there, K1's bf16 diagonal storage and compact layout
-(both launch forms, rebuilds), K3's float4 and scalar variants, and the
-multilevel and Krylov solvers on the kernels.
+"""Kernels K1, K2, K3, K4 and K5 against their plain PyTorch versions on
+the card, their gradients there, K1's bf16 diagonal storage and compact
+layout (both launch forms, rebuilds), K3's float4 and scalar variants,
+the multilevel and Krylov solvers on the kernels, BSR against K2 and K3,
+and the CLI on the card.
 
 Marked `gpu`: run on a machine with an NVIDIA card (and nvcc) with
 
@@ -1186,3 +1187,64 @@ def test_eigen_analysis_on_the_card(cuda):
                                        atol=1e-6 * np.abs(want[k]).max())
         else:
             np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_health_kernel_is_exact(cuda):
+    """K5: y == 2 x bitwise on the probe's block and on a ragged length
+    (the last CUDA block masked); the probe counts its one launch."""
+    from gnnla_tpu_torch.utils.health import (SHAPE, HealthCall,
+                                              health_cuda, health_probe)
+
+    gen = np.random.default_rng(11)
+    for shape in (SHAPE, (1000,)):
+        x = torch.from_numpy(gen.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+        y = health_cuda(x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, 2 * x)
+    call = HealthCall()
+    assert health_probe(device=cuda, call=call) > 0.0
+    assert call.launches == 1
+    with pytest.raises(ValueError, match="float32"):
+        health_cuda(torch.ones(8, 128, device=cuda, dtype=torch.float64))
+
+
+def test_bsr_on_the_card_against_k2_and_k3(cuda):
+    """BSR on a shuffled-then-RCM-ordered 48^2 Laplacian on the card: the
+    SpMV against K2 and the M = 20 SpMM against K3 on the same CSR (rtol
+    1e-5, atol 1e-5 max|y|), the diagonal exactly; TF32 off for the block
+    product."""
+    from gnnla_tpu_torch.ops.bsr import permute, to_bsr
+    from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    A, B, perm = _rcm_csr(48, cuda)
+    A_rcm, _ = permute(A, perm)
+    bsr = to_bsr(A_rcm, block_size=128)
+    assert bsr.device.type == "cuda"
+    csr = CsrSpMV(B, device=cuda)
+    gen = np.random.default_rng(12)
+    x = torch.from_numpy(gen.standard_normal(A.n_rows).astype(
+        np.float32)).to(cuda)
+    X = torch.from_numpy(gen.standard_normal((A.n_rows, 20)).astype(
+        np.float32)).to(cuda)
+    _close(bsr @ x, csr(x))
+    _close(bsr @ X, csr(X))
+    assert csr.launches == 1 and csr.launches_mm == 1
+    assert torch.equal(bsr.diagonal(), A_rcm.diagonal())
+
+
+def test_cli_lists_the_grid_on_the_card(cuda):
+    """`python -m gnnla_tpu_torch.cli diffusion --num-combos` in a
+    subprocess on the card's machine."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-m", "gnnla_tpu_torch.cli",
+                        "diffusion", "--num-combos"], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    assert p.stdout.strip() == "There are 5 total combinations"

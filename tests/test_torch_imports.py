@@ -11,6 +11,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gnnla_tpu")
+EXAMPLES = ("matvec", "residual_norm", "jacobi", "chebyshev", "power_method",
+            "soc_interp", "vcycle", "multigrid_pcg", "train_jacobi",
+            "train_diffusion", "band_layout", "unstructured_ell")
 
 
 def _port_files():
@@ -66,7 +69,16 @@ def test_port_files_found():
                  "gnnla_tpu_torch/evaluation/__init__.py",
                  "gnnla_tpu_torch/evaluation/eigen_analysis.py",
                  "gnnla_tpu_torch/evaluation/ood.py",
-                 "gnnla_tpu_torch/evaluation/freq_study.py"):
+                 "gnnla_tpu_torch/evaluation/freq_study.py",
+                 "gnnla_tpu_torch/evaluation/viz.py",
+                 "gnnla_tpu_torch/cli.py",
+                 "gnnla_tpu_torch/utils/__init__.py",
+                 "gnnla_tpu_torch/utils/metrics.py",
+                 "gnnla_tpu_torch/utils/health.py",
+                 "gnnla_tpu_torch/ops/bsr.py",
+                 "gnnla_tpu_torch/examples/run_all.py",
+                 *(f"gnnla_tpu_torch/examples/{name}.py"
+                   for name in EXAMPLES)):
         assert must in files
 
 
@@ -89,7 +101,12 @@ def test_import_pulls_in_no_jax():
             "gnnla_tpu_torch.problems.diffusion_fem, "
             "gnnla_tpu_torch.models.diffusion_gnn, "
             "gnnla_tpu_torch.training.train_diffusion, "
-            "gnnla_tpu_torch.evaluation; "
+            "gnnla_tpu_torch.evaluation, gnnla_tpu_torch.evaluation.viz, "
+            "gnnla_tpu_torch.cli, gnnla_tpu_torch.utils, "
+            "gnnla_tpu_torch.utils.metrics, gnnla_tpu_torch.utils.health, "
+            "gnnla_tpu_torch.ops.bsr, gnnla_tpu_torch.examples.run_all, "
+            + ", ".join(f"gnnla_tpu_torch.examples.{name}"
+                        for name in EXAMPLES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -143,6 +160,24 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                                              cache_dir=None))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         BandPattern.from_layout(BandLayout(laplacian_2d(3, device="cpu")))
+    from gnnla_tpu_torch.cli import main as cli_main
+    from gnnla_tpu_torch.examples import matvec as matvec_example
+    from gnnla_tpu_torch.ops.bsr import to_bsr
+    from gnnla_tpu_torch.utils import Timer, health_probe, profile_trace
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_main(["diffusion", "--num-matrices", "20", "--n-mesh", "4",
+                  "--epochs", "1", "--end-index", "1", "--cache-dir", ""])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        matvec_example.main(n=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_bsr(laplacian_2d(4, device="cpu"), block_size=4, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Timer()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        with profile_trace("unused"):
+            pass
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        health_probe()
     # asked for explicitly, the CPU runs the plain versions
     assert laplacian_2d(4, device="cpu").device.type == "cpu"
 
@@ -153,8 +188,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     from gnnla_tpu_torch.ops.dia_spmv import dia_tiles, dia_tiles_spmv_cuda
     from gnnla_tpu_torch.ops.stencil_kernel import stencil_cuda
     from gnnla_tpu_torch.ops.stream_spmv import csr_spmv_cuda
+    from gnnla_tpu_torch.utils.health import health_cuda
 
     x = torch.zeros(4)
+    with pytest.raises(ValueError, match="not CUDA"):
+        health_cuda(torch.ones(8, 128))
     with pytest.raises(ValueError, match="not CUDA"):
         dia_tiles_spmv_cuda(dia_tiles(torch.ones(1, 4), (0,)), x)
     with pytest.raises(ValueError, match="not CUDA"):
@@ -175,7 +213,9 @@ def test_build_is_lazy():
     code = ("import chip_smoke, gnnla_tpu_torch.models, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
             "gnnla_tpu_torch.ops.stencil_kernel, "
-            "gnnla_tpu_torch.training; "
+            "gnnla_tpu_torch.training, gnnla_tpu_torch.utils, "
+            "gnnla_tpu_torch.ops.bsr, gnnla_tpu_torch.cli, "
+            "gnnla_tpu_torch.examples.run_all; "
             "from gnnla_tpu_torch import _build; "
             "raise SystemExit(0 if _build._lib is None else 1)")
     env = dict(os.environ, PYTHONPATH=ROOT)
