@@ -251,7 +251,54 @@ The rest of the port's single-device surface:
                     `jacobi --num-matrices 12`, which must fail with the
                     split message before building data; seconds of each.
  33. examples     — `python -m gnnla_tpu_torch.examples.run_all` on the
-                    card at default sizes: all 12 pass; seconds of each.
+                    card at default sizes: all 13 pass (the distributed
+                    twin as a world of one NCCL rank); seconds of each.
+Distribution on torch.distributed (`gnnla_tpu_torch/parallel/`), on a
+world of one NCCL rank unless said otherwise:
+ 34. dist_init    — `initialize_distributed` through a file store,
+                    `global_row_mesh()`; a 1-rank ring shift gives x back;
+                    backend, world size, NCCL version.
+ 35. dist_spmv    — the row-partitioned COO path on phase 3's A: matvec
+                    (rtol 1e-5, atol 1e-5), 10 Jacobi sweeps at omega 0.7
+                    (1e-4, 1e-4), the norm (rtol 1e-5) and 30 power
+                    iterations (lambda rtol 1e-4) against the port's
+                    single-device twins (tests/test_parallel.py's
+                    tolerances).
+ 36. dist_stream  — K2 per shard (`build_sharded_stream`, min_halo_tiles=1,
+                    so h_tiles >= 1) on phase 12's shuffled A: one K2
+                    launch per apply; y against K2 on the same RCM-ordered,
+                    padded CSR whole (bitwise, or the largest relative gap
+                    printed and held to 1e-5); x's cotangent against K2 on
+                    that CSR's transpose (one backward launch on the
+                    shard's transpose), the values' cotangent exactly
+                    w[row] x[col] and its sum within 1e-5 of the host
+                    pattern sum; the sharded apply's, the shard K2's and
+                    the whole K2's times (L2 flushed) and `csr_spmv[A_rcm_
+                    shard]`, `csr_spmv[A_rcm_shard_T, backward]` rows.
+ 37. dist_vcycle  — 3 cycles of `make_sharded_stream_vcycle` (exactly 7
+                    K2 launches per cycle: the shard row's launches) and of
+                    `make_sharded_vcycle` on phase 12's setup, each within
+                    1e-4 of max|x| of the single-device `vcycle`; ms per
+                    cycle beside phase 12's.
+ 38. dist_mgpcg   — `make_sharded_mg_pcg(flip_sign=True,
+                    n_sharded_levels=2)` on phase 20's SA hierarchy (COO
+                    levels): 15 +- 1 iterations to 1e-8 ||b||, x within
+                    1e-4 of max|x| of the single-device `mg_pcg` on them;
+                    ms per iteration beside phase 20's.
+ 39. dist_train   — `train_jacobi` at its defaults (phase 30's data) and
+                    `train_diffusion` combination 1 at n = 80 on 100 of
+                    phase 26's matrices, 1 epoch each, with a 1-rank "data"
+                    mesh: losses within 1e-6 of the same runs without one.
+ 40. dist_2rank   — two spawned processes on the one card under gloo (the
+                    card's tensors go through pinned host memory:
+                    `staged_through_host`): the sharded COO matvec, K2
+                    shards and 3 V-cycles on them at 256^2 shuffled, and 2
+                    data-parallel Jacobi steps, each against the rank's
+                    single-device result within the CPU tests'
+                    tolerances; beside them two NCCL ranks on the card
+                    report whether NCCL takes them. Correctness only.
+ 41. hw_check     — `run_sharded_hardware_check(device="cuda")`: its
+                    dict.
 Then the script's seconds (`script`).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
@@ -273,6 +320,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gnnla_tpu_torch import _build, native_ext
 from gnnla_tpu_torch.core import (GNBlock, GraphState, batch_operators,
@@ -305,6 +353,16 @@ from gnnla_tpu_torch.ops.dia_spmv import (DiaKernelOperator,
                                           dia_kernel_operator)
 from gnnla_tpu_torch.examples.run_all import MODULES as EXAMPLES
 from gnnla_tpu_torch.ops.bsr import permute, rcm_permutation, to_bsr
+from gnnla_tpu_torch.parallel import (
+    build_sharded_stream, gather_vector, global_row_mesh,
+    initialize_distributed, local_block, make_sharded_jacobi,
+    make_sharded_matvec, make_sharded_mg_pcg, make_sharded_norm,
+    make_sharded_power_method, make_sharded_stream_vcycle,
+    make_sharded_vcycle, partition_rows, shard_vector, unshard_vector)
+from gnnla_tpu_torch.parallel.collectives import axis_group, psum, ring_shift
+from gnnla_tpu_torch.parallel.hardware_check import \
+    run_sharded_hardware_check
+from gnnla_tpu_torch.parallel.stream import _pad_square
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stencil import (stencil_apply_plain,
                                          stencil_matvec, stencil_transpose)
@@ -370,6 +428,12 @@ K5_ROW = ("gnnla_tpu_torch/csrc/health.cu", "bench.py:148")
 BSR_BLOCK = 128
 BSR_MAX_BLOCKS = 1 << 22  # to_bsr's default
 PCG_ITERS = 30
+# the distribution phases: results of earlier phases they reuse, the
+# diffusion run's matrices, the two-rank grid side and time limit
+SHARED = {}
+DIST_DIFF_MATRICES = 100
+DIST_2RANK_N = 256
+DIST_2RANK_TIMEOUT_S = 240
 CONV_SIZES = (64, 128, 256)
 OMEGA = 2.0 / 3.0
 M_PROBES = 20  # the trainer's m_probes: K3's width on the training path
@@ -1017,6 +1081,7 @@ def stream_path(A, flush, smi) -> list:
 
     x0 = torch.zeros(n, device=dev)
     ms_cycle = cuda_ms(lambda: auto.run(b, x0), iters=20)
+    SHARED.update(setup_p=setup_p, stream_ms_per_cycle=ms_cycle)
     ms_plain = cuda_ms(lambda: solve(setup_p, b, x0, n_cycles=1), iters=3,
                        warmup=1)
     prof = profile_cycles(lambda c: [auto.run(b, x0) for _ in range(c)])
@@ -1705,6 +1770,7 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
                                for _ in range(5)])) / PCG_ITERS
     busy = profile_cycles(lambda c: [solve_once() for _ in range(c)])
     busy_iter = busy["device_busy_ms_per_cycle"] / PCG_ITERS
+    SHARED.update(sa=sa, mg_pcg_ms_per_iter=ms_iter)
     peak = torch.cuda.max_memory_allocated()
     rebuilds = {lvl: a.rebuilds for lvl, a in on_k1.items()}
     require(not any(rebuilds.values()), ("K1 layouts rebuilt", rebuilds))
@@ -2175,6 +2241,7 @@ def diffusion_data(dev, smi):
               split=[tr.n_graphs, va.n_graphs, te.n_graphs],
               host_s=host_s, pool=pool_kind(DIFF_MATRICES),
               nvidia_smi=smi))
+    SHARED["diffusion_ds"] = ds.select(np.arange(DIST_DIFF_MATRICES))
     return ds, te
 
 
@@ -2331,6 +2398,7 @@ def eigen_phase(dev, smi) -> None:
     ds = small_band_dataset(1000, n=38, h_low=5e-4, seed=54681,
                             cache_dir=None, device=dev)
     data_s = time.perf_counter() - t0
+    SHARED["jacobi_ds"] = ds  # the Jacobi trainer's default data
     perm = np.random.default_rng(54681).permutation(ds.n_graphs)
     te = ds.select(perm[850:1000])
     t0 = time.perf_counter()
@@ -2577,6 +2645,430 @@ def cli_examples_phases(smi) -> None:
               nvidia_smi=smi))
 
 
+# ------------------------------------------------------------ distribution
+def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
+           what: str) -> dict:
+    """|got - want| <= atol + rtol |want| elementwise (the JAX tests'
+    assert_allclose); raises otherwise."""
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all()) and bool(
+        torch.isfinite(got).all())
+    out = dict(what=what, rtol=rtol, atol=atol, max_abs_err=float(err.max()),
+               max_rel_err=float(err.max() / want.abs().max()))
+    if not ok:
+        raise AssertionError(f"{what}: sharded result disagrees {out}")
+    return out
+
+
+def dist_init(store: str, smi) -> object:
+    """Phase 34: a world of one NCCL rank on the card and its row mesh; a
+    1-rank ring gives x back."""
+    dev = initialize_distributed(f"file://{store}", 1, 0, device="cuda")
+    mesh = global_row_mesh()
+    g = axis_group(mesh, "rows")
+    x = torch.arange(8.0, device=dev)
+    require(ring_shift(x, 1, g) is x and torch.equal(psum(x, g), x),
+            "a 1-rank ring is the identity")
+    emit(dict(phase="dist_init", backend=dist.get_backend(g),
+              world_size=dist.get_world_size(g),
+              nccl=".".join(map(str, torch.cuda.nccl.version())),
+              device=str(dev), mesh=str(mesh), nvidia_smi=smi))
+    return mesh
+
+
+def dist_spmv(A, mesh, smi) -> None:
+    """Phase 35: the row-partitioned COO path at 1024^2 against the
+    port's single-device twins, within tests/test_parallel.py's
+    tolerances."""
+    dev, n = A.device, A.n_rows
+    t0 = time.perf_counter()
+    part = partition_rows(A, dist.get_world_size())
+    part_s = time.perf_counter() - t0
+    gen = np.random.default_rng(24601)
+    x_h, b_h = (gen.random(n).astype(np.float32) for _ in range(2))
+    x, b = (torch.from_numpy(v).to(dev) for v in (x_h, b_h))
+
+    def put(v):
+        return local_block(shard_vector(v, part), mesh)
+
+    def whole(v_l):
+        return unshard_vector(gather_vector(v_l, mesh), part)
+
+    xs, bs = put(x), put(b)
+    mv = make_sharded_matvec(part, mesh)
+    res = [within(whole(mv(xs)), A.matvec(x), 1e-5, 1e-5, "matvec")]
+    sweep = make_sharded_jacobi(part, mesh)(
+        bs, xs, put(torch.from_numpy(A.host_diagonal().astype(
+            np.float32)).to(dev)), 0.7, 10)
+    res.append(within(whole(sweep), jacobi(A, b, x, omega=0.7, n_iters=10),
+                      1e-4, 1e-4, "10 Jacobi sweeps"))
+    nrm = make_sharded_norm(part, mesh)(xs)
+    res.append(within(nrm, torch.linalg.vector_norm(x), 1e-5, 0.0, "norm"))
+    lam, _ = make_sharded_power_method(part, mesh)(xs, 30)
+    res.append(within(lam, power_method(A, x, n_iters=30)[0], 1e-4, 0.0,
+                      "power method, 30 steps"))
+    emit(dict(phase="dist_spmv", n=n, partition_s=part_s, halo=part.halo,
+              halo_reach=part.halo_reach, results=res,
+              ms_sharded_matvec=cuda_ms(lambda: mv(xs), iters=20),
+              ms_matvec=cuda_ms(lambda: A.matvec(x), iters=20),
+              nvidia_smi=smi))
+
+
+def dist_stream(A_p, mesh, lib, flush, smi) -> list:
+    """Phase 36: K2 per shard on the stream leg's shuffled A with a forced
+    halo, against K2 on the same RCM-ordered, padded CSR whole; the x and
+    values cotangents. Returns the two K2 rows, their launches still to
+    be filled by the main path's run."""
+    dev, n = A_p.device, A_p.n_rows
+    t0 = time.perf_counter()
+    kern = build_sharded_stream(A_p, mesh, with_grad=True, min_halo_tiles=1)
+    build_s = time.perf_counter() - t0
+    require(kern.h_tiles >= 1, kern.h_tiles)
+    B, perm = rcm_csr(A_p.to_scipy().tocsr())
+    require(np.array_equal(perm, kern.perm), "the shards' RCM order")
+    N = kern.padded_len
+    Bp = _pad_square(B, N)
+    Bp.sort_indices()
+    whole = CsrSpMV(Bp, device=dev)
+    Bt = Bp.T.tocsr()
+    Bt.sort_indices()
+    whole_t = CsrSpMV(Bt, device=dev)
+
+    gen = np.random.default_rng(13)
+    x_l = kern.shard(kern.to_padded(gen.standard_normal(n)))
+    w_l = kern.shard(kern.to_padded(gen.standard_normal(n)))
+    kern.fwd.launches = 0
+    y = kern.apply(x_l)
+    torch.cuda.synchronize()
+    per_apply = kern.fwd.launches
+    require(per_apply == 1, per_apply)
+    y_ref = whole(x_l)  # one rank: its block is the whole padded vector
+    bitwise = bool(torch.equal(y, y_ref))
+    gap = float((y - y_ref).abs().max() / y_ref.abs().max())
+    require(bitwise or gap <= RTOL, gap)
+
+    # the cotangents of <w, A x>: x's against K2 on A^T whole, the values'
+    # against w[row] * x[col] and its sum against the host pattern sum
+    vals = kern.diff_args.detach().clone().requires_grad_(True)
+    xg = x_l.clone().requires_grad_(True)
+    kern.fwd.transpose.launches = 0
+    dvals, xbar = torch.autograd.grad(
+        torch.sum(w_l * kern.apply_diff(vals, xg)), (vals, xg))
+    torch.cuda.synchronize()
+    bwd_launches = kern.fwd.transpose.launches
+    require(bwd_launches == 1, bwd_launches)
+    x_err = compare(xbar, whole_t(w_l), "x cotangent against A^T w")
+    x_ext = kern.extend(x_l)
+    prod = (w_l.index_select(0, entry_rows(kern.fwd.row_ptr, kern.fwd.nnz))
+            * x_ext.index_select(0, kern.fwd.cols))
+    require(torch.equal(dvals, prod), "values cotangent = w[row] x[col]")
+    coo = Bp.tocoo()
+    w_h, x_h = w_l.double().cpu().numpy(), x_l.double().cpu().numpy()
+    ref_sum = float(np.sum(w_h[coo.row] * x_h[coo.col]))
+    d64 = dvals.double()
+    sum_gap = abs(float(d64.sum()) - ref_sum) / float(d64.abs().sum())
+    require(sum_gap < 1e-5, sum_gap)
+
+    rows = []
+    for key, csr, vin, err in (
+            ("A_rcm_shard", kern.fwd, x_ext,
+             compare(kern.fwd(x_ext), kern.fwd.plain(x_ext), "A_rcm shard")),
+            ("A_rcm_shard_T, backward", kern.fwd.transpose, w_l, x_err)):
+        raw, bytes_moved, flops = csr_raw(lib, csr, vin)
+        lib_mat = csr_tensor(csr)
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        rows.append(dict(
+            name=f"csr_spmv[{key}]", route="cuda", source=K2_ROW[1],
+            replaces=K2_ROW[2], via="gnnla_tpu/parallel/stream.py:145",
+            launches=None, max_abs_err=err["max_abs_err"],
+            ms=cuda_ms_cold(raw, 20, flush),
+            plain_ms=cuda_ms_cold(lambda: csr.plain(vin), 5, flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms_cold(lambda: lib_mat @ vin, 20, flush),
+            shape=list(csr.shape), nnz=csr.nnz, **k2_fields(csr)))
+        del lib_mat
+    rows[1]["launches"] = bwd_launches
+    whole_raw = csr_raw(lib, whole, x_l)[0]
+    emit(dict(phase="dist_stream", n=n, padded=N, h_tiles=kern.h_tiles,
+              shard_shape=list(kern.fwd.shape), build_s=build_s,
+              y_bitwise_whole_k2=bitwise, y_max_rel_gap=gap,
+              k2_launches_per_apply=per_apply,
+              backward_k2_launches=bwd_launches,
+              x_cotangent=x_err, values_sum_rel_gap=sum_gap,
+              sharded_apply_ms=cuda_ms_cold(lambda: kern.apply(x_l), 20,
+                                            flush),
+              shard_k2_ms=rows[0]["ms"],
+              whole_k2_ms=cuda_ms_cold(whole_raw, 20, flush),
+              nvidia_smi=smi))
+    return rows
+
+
+def dist_vcycle(setup_p, mesh, k2_row, smi) -> None:
+    """Phase 37: 3 cycles of the sharded two-grid cycle with the fine
+    level on K2 shards, and of the COO one, on the shuffled 1024^2
+    Laplacian, against the single-device `vcycle` on the same setup
+    (1e-4 of max|x|). The K2 shard's launches of this run fill its row."""
+    dev = setup_p.A.device
+    n = setup_p.A.n_rows
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(n).astype(
+        np.float32)).to(dev)
+    x_ref = solve(setup_p, b, torch.zeros(n, device=dev), n_cycles=3)
+    scale = float(x_ref.abs().max())
+    t0 = time.perf_counter()
+    cycle, kern = make_sharded_stream_vcycle(setup_p, mesh,
+                                             min_halo_tiles=1)
+    stream_s = time.perf_counter() - t0
+    b_l = kern.shard(kern.to_padded(b))
+    x_l = torch.zeros_like(b_l)
+    kern.fwd.launches = 0
+    for _ in range(3):
+        x_l = cycle(b_l, x_l)
+    torch.cuda.synchronize()
+    launches = kern.fwd.launches
+    # 3 pre + 3 post sweeps and the residual per cycle
+    require(launches == 7 * 3, launches)
+    k2_row["launches"] = launches
+    x_st = torch.from_numpy(kern.from_padded(kern.gather(x_l))).to(dev)
+    rel_stream = float((x_st - x_ref).abs().max()) / scale
+    require(rel_stream <= 1e-4, rel_stream)
+
+    t0 = time.perf_counter()
+    ccycle, part = make_sharded_vcycle(setup_p, mesh)
+    coo_s = time.perf_counter() - t0
+    bc = local_block(shard_vector(b, part), mesh)
+    xc = torch.zeros_like(bc)
+    for _ in range(3):
+        xc = ccycle(bc, xc)
+    x_coo = unshard_vector(gather_vector(xc, mesh), part)
+    rel_coo = float((x_coo - x_ref).abs().max()) / scale
+    require(rel_coo <= 1e-4, rel_coo)
+    z, zc = torch.zeros_like(b_l), torch.zeros_like(bc)
+    emit(dict(phase="dist_vcycle", n=n, cycles=3, h_tiles=kern.h_tiles,
+              k2_launches=launches, rel_err_stream=rel_stream,
+              rel_err_coo=rel_coo, build_s=dict(stream=stream_s, coo=coo_s),
+              ms_per_cycle_stream=cuda_ms(lambda: cycle(b_l, z), iters=10),
+              ms_per_cycle_coo=cuda_ms(lambda: ccycle(bc, zc), iters=3,
+                                       warmup=1),
+              ms_per_cycle_auto_stream=SHARED["stream_ms_per_cycle"],
+              nvidia_smi=smi))
+
+
+def dist_mgpcg(A, b, mesh, smi) -> None:
+    """Phase 38: sharded mg_pcg on the SA hierarchy (COO levels, 2
+    sharded): 15 +- 1 iterations to 1e-8 ||b||, x within 1e-4 of max|x|
+    of the single-device mg_pcg on the same levels."""
+    sa, ref = SHARED["sa"], jax_bench_reference()
+    bnorm = float(torch.linalg.vector_norm(b))
+    t0 = time.perf_counter()
+    solve_sh, part = make_sharded_mg_pcg(sa, mesh, flip_sign=True,
+                                         n_sharded_levels=2)
+    build_s = time.perf_counter() - t0
+    b_l = local_block(shard_vector(b, part), mesh)
+    z = torch.zeros_like(b_l)
+    x_l, hist = solve_sh(b_l, z, PCG_ITERS)
+    conv = np.flatnonzero(hist / bnorm < 1e-8)
+    require(conv.size > 0, f"no 1e-8 in {PCG_ITERS} iterations: {hist}")
+    iters = int(conv[0]) + 1
+    require(abs(iters - ref["pcg_iters_to_1e8"]) <= 1,
+            (iters, ref["pcg_iters_to_1e8"]))
+    x = unshard_vector(gather_vector(x_l, mesh), part)
+    x_one, _ = mg_pcg(sa, b, torch.zeros_like(b), n_iters=PCG_ITERS,
+                      flip_sign=True)
+    rel = float((x - x_one).abs().max() / x_one.abs().max())
+    require(rel <= 1e-4, rel)
+    ms_iter = float(np.median([cuda_ms(lambda: solve_sh(b_l, z, iters),
+                                       iters=1, warmup=1)
+                               for _ in range(3)])) / iters
+    emit(dict(phase="dist_mgpcg", levels=sa.n_levels, sharded_levels=2,
+              iters_to_1e8=iters, jax_bench_iters=ref["pcg_iters_to_1e8"],
+              rel_err_vs_single_device=rel,
+              true_rel_residual=float(torch.linalg.vector_norm(
+                  b - A.matvec(x))) / bnorm,
+              build_s=build_s, ms_per_iteration=ms_iter,
+              ms_per_iteration_sa_mg_pcg=SHARED["mg_pcg_ms_per_iter"],
+              nvidia_smi=smi))
+
+
+def dist_train(smi) -> None:
+    """Phase 39: data-parallel training on a 1-rank "data" mesh against
+    the same runs without one (losses within 1e-6): train_jacobi at its
+    defaults for 1 epoch, train_diffusion combination 1 at n = 80 on 100
+    matrices for 1 epoch."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    data = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    out = {}
+    runs = (
+        ("jacobi", train, TrainJacobiConfig(epochs=1, cache_dir=None,
+                                            log_every=0),
+         SHARED["jacobi_ds"]),
+        ("diffusion", train_diffusion, TrainDiffusionConfig(
+            **DIFF_CFG, num_matrices=DIST_DIFF_MATRICES, n_mesh=DIFF_N,
+            epochs=1, cache_dir=None, log_every=0), SHARED["diffusion_ds"]))
+    for key, fn, cfg, ds in runs:
+        t0 = time.perf_counter()
+        _, h_mesh = fn(cfg, dataset=ds, mesh=data)
+        mesh_s = time.perf_counter() - t0
+        _, h_one = fn(cfg, dataset=ds)
+        gaps = {}
+        for k in ("train_loss", "val_loss", "test_loss"):
+            got, want = np.asarray(h_mesh[k]), np.asarray(h_one[k])
+            require(np.all(np.isfinite(got)), (key, k, got))
+            gaps[k] = float(np.max(np.abs(got - want) / np.abs(want)))
+            require(gaps[k] <= 1e-6, (key, k, got, want))
+        out[key] = dict(losses={k: h_mesh[k] for k in (
+            "train_loss", "val_loss", "test_loss")}, rel_gaps=gaps,
+            seconds_with_mesh=mesh_s)
+    emit(dict(phase="dist_train", runs=out, nvidia_smi=smi))
+
+
+def dist_rank(rank: int, store: str, out: str, backend: str) -> None:
+    """One of two processes on card 0 (phase 40), spawned. "gloo": the
+    sharded COO matvec, K2 per shard, 3 V-cycles on K2 shards at 256^2
+    shuffled and 2 data-parallel Jacobi steps, each against this rank's
+    single-device result within the CPU tests' tolerances; gloo moves the
+    card's tensors through pinned host memory. "nccl": whether NCCL takes
+    two ranks on one card (the outcome is the result)."""
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    if backend == "nccl":
+        initialize_distributed(f"file://{store}", 2, rank, device=dev,
+                               timeout=60)
+        try:
+            dist.all_reduce(torch.ones(1, device=dev))
+            torch.cuda.synchronize()
+            outcome = "accepted"
+        except Exception as e:  # noqa: BLE001 — the outcome is reported
+            outcome = f"refused: {type(e).__name__}: " + " ".join(
+                ln for ln in str(e).splitlines() if "Duplicate" in ln
+                or "invalid usage" in ln)[:300]
+        with open(os.path.join(out, f"nccl{rank}.json"), "w") as f:
+            json.dump(dict(outcome=outcome), f)
+        return
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from gnnla_tpu_torch.parallel import collectives
+    from gnnla_tpu_torch.ops.stream_op import stream_operator
+    initialize_distributed(f"file://{store}", 2, rank, device=dev,
+                           backend="gloo", timeout=120)
+    mesh = global_row_mesh(device_type="cuda")
+    A = laplacian_2d(DIST_2RANK_N, device=dev).eliminate_zeros()
+    rows, cols, vals = A.host_coo()
+    new = np.argsort(np.random.default_rng(0).permutation(A.n_rows))
+    A_p = SparseOperator.from_coo(new[rows], new[cols], vals, A.shape,
+                                  device=dev)
+    n = A_p.n_rows
+    gen = np.random.default_rng(29)
+    x_h = gen.standard_normal(n).astype(np.float32)
+    x = torch.from_numpy(x_h).to(dev)
+    res = {}
+    part = partition_rows(A_p, 2)
+    y = unshard_vector(gather_vector(make_sharded_matvec(part, mesh)(
+        local_block(shard_vector(x, part), mesh)), mesh), part)
+    res["coo_matvec"] = within(y, A_p.matvec(x), 1e-5, 1e-5, "COO matvec")
+    kern = build_sharded_stream(A_p, mesh)
+    y = torch.from_numpy(kern.matvec(x_h)).to(dev)
+    want = stream_operator(A_p).matvec(x)
+    res["stream_spmv"] = within(y, want, 2e-5,
+                                2e-5 * float(want.abs().max()), "K2 shards")
+    res["h_tiles"] = kern.h_tiles
+    res["k2_launches"] = kern.fwd.launches
+    setup = setup_twogrid(A_p, theta=0.25, splitting="cljp", seed=0)
+    b = torch.from_numpy(gen.standard_normal(n).astype(np.float32)).to(dev)
+    cycle, vk = make_sharded_stream_vcycle(setup, mesh)
+    b_l = vk.shard(vk.to_padded(b))
+    x_l = torch.zeros_like(b_l)
+    for _ in range(3):
+        x_l = cycle(b_l, x_l)
+    x_st = torch.from_numpy(vk.from_padded(vk.gather(x_l))).to(dev)
+    x_ref = solve(setup, b, torch.zeros(n, device=dev), n_cycles=3)
+    res["stream_vcycles"] = within(x_st, x_ref, 2e-4,
+                                   2e-4 * float(x_ref.abs().max()),
+                                   "3 V-cycles on K2 shards")
+    cfg = TrainJacobiConfig(num_matrices=16, n_mesh=10, epochs=2,
+                            batch_size=8, n_train=12, n_val=2, n_test=2,
+                            m_probes=8, cache_dir=None, log_every=0)
+    data = init_device_mesh("cuda", (2,), mesh_dim_names=("data",))
+    _, h2 = train(cfg, mesh=data)
+    _, h1 = train(cfg)
+    res["jacobi_steps"] = within(
+        torch.tensor(h2["train_loss"] + h2["val_loss"]),
+        torch.tensor(h1["train_loss"] + h1["val_loss"]), 1e-5, 0.0,
+        "2 data-parallel Jacobi steps")
+    res["staged_transfers"] = collectives.staged_transfers
+    with open(os.path.join(out, f"gloo{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def dist_2rank(smi) -> None:
+    """Phase 40: two processes on the one card. The gloo pair's checks
+    (`dist_rank`), correctness only; beside them a NCCL pair asks whether
+    NCCL takes two ranks on one device."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctxs = {be: mp.start_processes(
+            dist_rank, args=(os.path.join(tmp, f"store-{be}"), tmp, be),
+            nprocs=2, join=False, start_method="spawn")
+            for be in ("gloo", "nccl")}
+        errors = {}
+        deadline = time.monotonic() + DIST_2RANK_TIMEOUT_S
+        for be, ctx in ctxs.items():
+            try:
+                while not ctx.join(timeout=max(
+                        1.0, deadline - time.monotonic())):
+                    if time.monotonic() >= deadline:
+                        errors[be] = "timed out"
+                        break
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors[be] = f"{type(e).__name__}: {e}"[-4000:]
+            finally:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+                    p.join(5)
+        require("gloo" not in errors, errors)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"gloo{r}.json")) as f:
+                ranks.append(json.load(f))
+        nccl = []
+        for r in range(2):
+            path = os.path.join(tmp, f"nccl{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    nccl.append(json.load(f)["outcome"])
+    staged = all(r["staged_transfers"] > 0 for r in ranks)
+    require(staged, "gloo moved no card tensor through the host")
+    emit(dict(phase="dist_2rank", backend="gloo", world_size=2, card=0,
+              staged_through_host=staged, ranks=ranks,
+              nccl_two_ranks_one_card=nccl or errors.get("nccl"),
+              seconds=time.perf_counter() - t0, nvidia_smi=smi))
+
+
+def dist_phases(A, A_p, b, lib, flush, smi) -> list:
+    """Phases 34-41 (distribution); returns the K2 shard rows."""
+    with tempfile.TemporaryDirectory() as store:
+        mesh = dist_init(os.path.join(store, "rendezvous"), smi)
+        try:
+            dist_spmv(A, mesh, smi)
+            rows = dist_stream(A_p, mesh, lib, flush, smi)
+            dist_vcycle(SHARED.pop("setup_p"), mesh, rows[0], smi)
+            dist_mgpcg(A, b, mesh, smi)
+            dist_train(smi)
+            dist_2rank(smi)
+            t0 = time.perf_counter()
+            hw = run_sharded_hardware_check(device="cuda")
+            require(hw["ok"], hw)
+            emit(dict(phase="hw_check", seconds=time.perf_counter() - t0,
+                      **hw, nvidia_smi=smi))
+        finally:
+            dist.destroy_process_group()
+    return rows
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
@@ -2791,9 +3283,11 @@ def main() -> int:
     del ds, te, model
     eigen_phase(dev, smi)
     bsr_phase(A_p, S, flush, smi)
-    del A_p, S
+    del S
     torch.cuda.empty_cache()  # the subprocesses below share the card
     cli_examples_phases(smi)
+    kernels += dist_phases(A, A_p, b, lib, flush, smi)
+    del A_p
     kernels.append(k5_row)
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -3,8 +3,8 @@
     python -m gnnla_tpu_torch.examples.run_all [--device cuda|cpu]
 
 Prints each example's output and seconds, exits 1 if any failed.
-`examples/distributed.py` has no twin yet: it comes with the port of
-`gnnla_tpu/parallel/`."""
+`distributed` runs as a world of one rank that it starts and ends itself
+(under torchrun it runs on the ranks torchrun started)."""
 import argparse
 import importlib
 import sys
@@ -12,7 +12,8 @@ import time
 
 MODULES = ["matvec", "residual_norm", "jacobi", "chebyshev", "power_method",
            "soc_interp", "vcycle", "multigrid_pcg", "train_jacobi",
-           "train_diffusion", "band_layout", "unstructured_ell"]
+           "train_diffusion", "band_layout", "unstructured_ell",
+           "distributed"]
 
 
 def main(argv=None) -> int:

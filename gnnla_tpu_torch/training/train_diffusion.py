@@ -32,7 +32,9 @@ from gnnla_tpu_torch.core.graph import GraphState
 from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
 from gnnla_tpu_torch.ops.band import choose_edge_layout
 from gnnla_tpu_torch.ops.sparse import SparseOperator
+from gnnla_tpu_torch.parallel.collectives import pmax, psum
 from gnnla_tpu_torch.training.checkpoints import save_checkpoint
+from gnnla_tpu_torch.training.data_parallel import DataParallel
 from gnnla_tpu_torch.training.datasets import (StackedGraphs,
                                                cosine_diffusion_dataset,
                                                periodic_rel_coords)
@@ -59,7 +61,8 @@ class TrainDiffusionConfig:
     cache_dir: Optional[str] = "data_cache"
     checkpoint_dir: Optional[str] = None
     log_every: int = 1
-    # data-parallel training over several cards: not ported yet
+    # data-parallel training over the ranks of an initialized process
+    # group of this size (see `train`'s mesh)
     n_devices: Optional[int] = None
 
 
@@ -137,6 +140,22 @@ def loss_terms(pred: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return mse + penalty
 
 
+def dp_loss_terms(pred: torch.Tensor, targets: torch.Tensor,
+                  dp: DataParallel):
+    """`loss_terms` of the global batch from this rank's slice: (share,
+    loss), the shares of the ranks summing to the loss. The MSE is a mean
+    of equal slices; the penalty max(relu(-pred)) is the global max M,
+    and its share is the sum of this rank's entries tied at M over the
+    global count of ties (amax's even split of the gradient)."""
+    mse = torch.mean((pred - targets) ** 2)
+    pen = torch.maximum(-pred, torch.zeros_like(pred))
+    top = pmax(pen.amax().detach(), dp.group)
+    ties = pen.detach() == top
+    n_ties = psum(ties.sum(), dp.group)
+    share = mse / dp.world + (pen * ties).sum() / n_ties
+    return share, dp.mean(mse) + top
+
+
 def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
           dataset: Optional[StackedGraphs] = None, init_params=None, *,
           mesh=None, device="cuda"):
@@ -146,13 +165,15 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
     `init_params` warm-starts from a state dict, e.g. one carried from the
     JAX package by `checkpoints.diffusion_params_from_jax`; otherwise the
     model is drawn from a torch.Generator seeded with config.seed.
-    Data-parallel training (`mesh`, config.n_devices) is not ported yet
-    and raises."""
+
+    `mesh` (a DeviceMesh with a "data" axis) or config.n_devices turns on
+    data-parallel training as in `train_jacobi.train`
+    (`training/data_parallel.py`). The loss's positivity penalty is a max
+    over the global batch: each rank's share holds its entries tied at
+    that max, each weighted by one over the global count of ties, which
+    splits the gradient as `amax` does."""
     cfg = config
-    if mesh is not None or cfg.n_devices:
-        raise NotImplementedError(
-            "data-parallel training (mesh / n_devices) comes with the "
-            "distribution slice of the port")
+    dp = DataParallel.from_args(mesh, cfg.n_devices, cfg.batch_size)
     device = resolve_device(device)
     rng = np.random.default_rng(cfg.seed)
     if dataset is None:
@@ -177,6 +198,8 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
                          device=device)
     if init_params is not None:
         model.load_state_dict(init_params)
+    if dp is not None:
+        dp.sync_parameters(model)
     apply_batch, band_pack = make_apply_banded(
         model, dataset, rel, grid_shape=(cfg.n_mesh, cfg.n_mesh))
 
@@ -195,13 +218,23 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
     def loss_fn(ov, d, g, y):
         return loss_terms(apply_batch(ov, d, g), y)
 
+    step_fn = loss_fn
+    if dp is not None:
+        def step_fn(ov, d, g, y):
+            return dp_loss_terms(apply_batch(*map(dp.split, (ov, d, g))),
+                                 dp.split(y), dp)
+
     def eval_loss(tensors) -> float:
+        """A whole split's loss, replicated on every rank (and averaged
+        over them, so every rank's plateau steps alike)."""
         with torch.no_grad():
-            return float(loss_fn(*tensors))
+            loss = loss_fn(*tensors)
+        return float(loss if dp is None else dp.mean(loss))
 
     if cfg.checkpoint_dir:
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     history = {"train_loss": [], "val_loss": [], "epoch_time_s": []}
+    lead = dp is None or dp.rank == 0  # the rank that logs and saves
     best_val, since_best = np.inf, 0
     best_state = {k: v.clone() for k, v in model.state_dict().items()}
     val_loss = np.inf
@@ -216,8 +249,8 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
                 break  # static batch shape: drop the ragged tail
             sel = torch.from_numpy(idx).to(device)
             batch = tuple(a.index_select(0, sel) for a in tr_t)
-            losses.append(train_step(model, optimizer, plateau, loss_fn,
-                                     batch, val_loss))
+            losses.append(train_step(model, optimizer, plateau, step_fn,
+                                     batch, val_loss, dp))
             sizes.append(len(idx))
         epoch_loss = sum(float(l) * s for l, s in zip(
             torch.stack(losses).tolist(), sizes))
@@ -225,10 +258,11 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
         history["train_loss"].append(epoch_loss / max(sum(sizes), 1))
         history["val_loss"].append(val_loss)
         history["epoch_time_s"].append(time.time() - t0)
-        if cfg.log_every and (epoch == 0 or (epoch + 1) % cfg.log_every == 0):
+        if lead and cfg.log_every and (epoch == 0
+                                       or (epoch + 1) % cfg.log_every == 0):
             print(f"epoch {epoch + 1}: train {history['train_loss'][-1]:.5f} "
                   f"val {val_loss:.5f}")
-        if cfg.checkpoint_dir:
+        if lead and cfg.checkpoint_dir:
             save_checkpoint(os.path.join(cfg.checkpoint_dir,
                                          f"epoch_{epoch:04d}.pt"),
                             model, {"val_loss": val_loss})
@@ -239,12 +273,12 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
         else:
             since_best += 1
             if since_best >= cfg.patience:
-                if cfg.log_every:
+                if lead and cfg.log_every:
                     print(f"early stopping at epoch {epoch + 1}")
                 break
 
     model.load_state_dict(best_state)
     history["test_loss"] = eval_loss(te_t) if te_t is not None else None
-    if cfg.log_every and te_t is not None:
+    if lead and cfg.log_every and te_t is not None:
         print(f"test loss: {history['test_loss']:.5f}")
     return model, history

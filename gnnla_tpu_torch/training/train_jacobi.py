@@ -39,6 +39,7 @@ from gnnla_tpu_torch.ops.dia import DIAOperator
 from gnnla_tpu_torch.ops.stencil import stencil_classes
 from gnnla_tpu_torch.training import spectral_loss
 from gnnla_tpu_torch.training.checkpoints import save_checkpoint
+from gnnla_tpu_torch.training.data_parallel import DataParallel
 from gnnla_tpu_torch.training.datasets import (StackedGraphs,
                                                small_band_dataset)
 
@@ -72,7 +73,8 @@ class TrainJacobiConfig:
     cache_dir: Optional[str] = "data_cache"
     checkpoint_dir: Optional[str] = None
     log_every: int = 1
-    # data-parallel training over several cards: not ported yet
+    # data-parallel training over the ranks of an initialized process
+    # group of this size (see `train`'s mesh)
     n_devices: Optional[int] = None
 
 
@@ -225,15 +227,26 @@ def _draw_probes(ds: StackedGraphs, idx, m: int, rng) -> np.ndarray:
         for i in idx])
 
 
-def train_step(model: TrainableJacobiMLP, optimizer: torch.optim.Optimizer,
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                plateau: PlateauScale, loss_fn, batch,
-               plateau_value: float) -> torch.Tensor:
+               plateau_value: float, dp: Optional[DataParallel] = None
+               ) -> torch.Tensor:
     """One step: the loss and its gradient, the plateau scale fed
     `plateau_value`, the scaled Adam update. Returns the loss (detached,
-    on the device)."""
+    on the device).
+
+    Data-parallel (`dp`): loss_fn returns (share, loss) on this rank's
+    slice of the batch, where the shares of the ranks sum to the global
+    batch's loss; their gradients are summed over the ranks, and the
+    global loss is returned."""
     optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(*batch)
-    loss.backward()
+    if dp is None:
+        loss = loss_fn(*batch)
+        loss.backward()
+    else:
+        share, loss = loss_fn(*batch)
+        share.backward()
+        dp.sum_gradients(model)
     plateau.step(plateau_value)
     optimizer.step()
     return loss.detach()
@@ -248,13 +261,17 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
     `init_params` warm-starts from a state dict, e.g. one carried from
     the JAX package by `checkpoints.params_from_jax`;
     otherwise the MLP is drawn from a torch.Generator seeded with
-    config.seed. Data-parallel training (`mesh`, config.n_devices) is not
-    ported yet and raises."""
+    config.seed.
+
+    `mesh` (a DeviceMesh with a "data" axis, or config.n_devices, the
+    size of the initialized process group) turns on data-parallel
+    training (`training/data_parallel.py`): each rank takes its equal
+    slice of every training batch, the gradients are summed over the
+    ranks into the global batch's, rank 0's initial parameters are
+    broadcast, and validation and test batches stay whole on every
+    rank. batch_size must divide the axis (ValueError)."""
     cfg = config
-    if mesh is not None or cfg.n_devices:
-        raise NotImplementedError(
-            "data-parallel training (mesh / n_devices) comes with the "
-            "distribution slice of the port")
+    dp = DataParallel.from_args(mesh, cfg.n_devices, cfg.batch_size)
     device = resolve_device(device)
     rng = np.random.default_rng(cfg.seed)
     if dataset is None:
@@ -272,6 +289,8 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
                                generator=cfg.seed, device=device)
     if init_params is not None:
         model.load_state_dict(init_params)
+    if dp is not None:
+        dp.sync_parameters(model)
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
     plateau = PlateauScale(optimizer)
     loss_fn = make_loss_fn(model, dataset, cfg.omega, cfg.gelfand_k,
@@ -280,6 +299,13 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
                            stability_margin=cfg.stability_margin,
                            stability_k=cfg.stability_k)
     stab = cfg.stability_weight > 0
+    step_fn = loss_fn
+    if dp is not None:
+        def step_fn(*batch):
+            # each term is a mean over the batch: the slices' means
+            # average to the global one
+            local = loss_fn(*(dp.split(a) for a in batch))
+            return local / dp.world, dp.mean(local)
 
     def stacks(ds):
         return (matrix_stack(ds, cfg.loss_layout).astype(np.float32),
@@ -291,6 +317,15 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
 
     tr_stack, va_stack, te_stack = stacks(tr), stacks(va), stacks(te)
     history = {"train_loss": [], "val_loss": [], "epoch_time_s": []}
+    lead = dp is None or dp.rank == 0  # the rank that logs and saves
+
+    def whole_loss(stack, probes) -> float:
+        """The loss of a whole split, replicated on every rank (and
+        averaged over them, so every rank's plateau steps alike)."""
+        with torch.no_grad():
+            loss = loss_fn(*map(put, stack), put(probes))
+        return float(loss if dp is None else dp.mean(loss))
+
     if cfg.checkpoint_dir:
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
 
@@ -310,30 +345,28 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
             if stab:
                 batch += (put(rng.standard_normal(
                     (len(idx), dataset.template.n_rows, cfg.m_probes))),)
-            loss = train_step(model, optimizer, plateau, loss_fn, batch,
-                              val_loss)
+            loss = train_step(model, optimizer, plateau, step_fn, batch,
+                              val_loss, dp)
             epoch_loss += float(loss) * len(idx)
             n_seen += len(idx)
 
-        with torch.no_grad():
-            val_loss = float(loss_fn(*map(put, va_stack), put(val_probes)))
+        val_loss = whole_loss(va_stack, val_probes)
         dt = time.time() - t0
         history["train_loss"].append(epoch_loss / max(n_seen, 1))
         history["val_loss"].append(val_loss)
         history["epoch_time_s"].append(dt)
-        if cfg.log_every and (epoch == 0 or (epoch + 1) % cfg.log_every == 0):
+        if lead and cfg.log_every and (epoch == 0
+                                       or (epoch + 1) % cfg.log_every == 0):
             print(f"epoch {epoch + 1}: train {history['train_loss'][-1]:.5f} "
                   f"val {val_loss:.5f} ({dt:.1f}s)")
-        if cfg.checkpoint_dir:
+        if lead and cfg.checkpoint_dir:
             save_checkpoint(os.path.join(cfg.checkpoint_dir,
                                          f"epoch_{epoch:04d}.pt"),
                             model, {"val_loss": val_loss})
 
     te_probes = _draw_probes(te, range(te.n_graphs), cfg.m_probes, rng)
-    with torch.no_grad():
-        history["test_loss"] = float(loss_fn(*map(put, te_stack),
-                                             put(te_probes)))
-    if cfg.log_every:
+    history["test_loss"] = whole_loss(te_stack, te_probes)
+    if lead and cfg.log_every:
         print(f"test loss: {history['test_loss']:.5f}")
     return model, history
 

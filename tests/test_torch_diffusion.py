@@ -470,12 +470,14 @@ def test_train_keeps_best_and_stops_early(tmp_path):
 
 
 def test_train_refuses_data_parallel():
+    """Data-parallel training needs a "data" mesh or a process group of
+    n_devices ranks (tests/test_torch_parallel_train.py runs it)."""
     cfg = t_train.TrainDiffusionConfig(num_matrices=4, n_mesh=4,
                                        cache_dir=None)
-    with pytest.raises(NotImplementedError, match="distribution"):
+    with pytest.raises(TypeError, match="'data' axis"):
         t_train.train(cfg, mesh=object(), device=CPU)
     cfg.n_devices = 2
-    with pytest.raises(NotImplementedError, match="distribution"):
+    with pytest.raises(RuntimeError, match="initialized process group"):
         t_train.train(cfg, device=CPU)
 
 

@@ -20,8 +20,7 @@ from test_torch_cli import diffusion_from_jax_init, jacobi_from_jax_init
 _EXAMPLES_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 NUMBER = re.compile(r"-?\d+\.?\d*(?:e[+-]?\d+)?")
-# examples/distributed.py waits for the port of gnnla_tpu/parallel/
-TWINS = sorted(set(SMALL) - {"distributed"})
+TWINS = sorted(SMALL)
 
 # (rtol, atol) per example. "errors": relative or absolute errors of an f32
 # computation against float64 or another f32 path, of order 1e-7 in both
@@ -47,6 +46,10 @@ TOL = {
     # on the parameters, drawn by each package's own generator)
     "band_layout": (0.0, 1e-4),
     "unstructured_ell": (0.0, 1e-5),
+    # both at one rank (JAX: a 1-device mesh; the port: a gloo world of
+    # one): sizes and counts exact, lambdas printed to 1e-6, errors of
+    # order 1e-8, the mg_pcg residual printed to 3 digits (1.76e-03)
+    "distributed": (1e-5, 1e-5),
 }
 
 
@@ -66,6 +69,12 @@ def test_twins_cover_the_single_device_examples():
 
 @pytest.mark.parametrize("name", TWINS)
 def test_twin_prints_the_jax_numbers(name, capsys, monkeypatch):
+    if name == "distributed":
+        # the JAX example meshes every device; the port's runs alone as
+        # one rank, so the JAX one sees one device
+        import jax
+        devices = jax.devices
+        monkeypatch.setattr(jax, "devices", lambda *a: devices(*a)[:1])
     sys.path.insert(0, _EXAMPLES_DIR)
     try:
         importlib.import_module(name).main(**SMALL[name])

@@ -1248,3 +1248,66 @@ def test_cli_lists_the_grid_on_the_card(cuda):
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr
     assert p.stdout.strip() == "There are 5 total combinations"
+
+
+# ------------------------------------------------ distribution (1 rank)
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one NCCL rank on the card, for the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    import torch.distributed as dist
+
+    from gnnla_tpu_torch.parallel import (global_row_mesh,
+                                          initialize_distributed)
+    store = tmp_path_factory.mktemp("nccl") / "rendezvous"
+    initialize_distributed(f"file://{store}", 1, 0, device="cuda")
+    yield global_row_mesh()
+    dist.destroy_process_group()
+
+
+def test_ring_shift_on_one_rank_is_the_identity(nccl_mesh):
+    from gnnla_tpu_torch.parallel.collectives import (axis_group, psum,
+                                                      ring_shift)
+    g = axis_group(nccl_mesh, "rows")
+    x = torch.arange(5.0, device="cuda")
+    for offset in (1, -1, 3):
+        assert ring_shift(x, offset, g) is x
+    assert torch.equal(psum(x, g), x)
+
+
+def test_sharded_stream_apply_is_k2(nccl_mesh):
+    """K2 per shard at one rank with a forced halo: one K2 launch per
+    apply, y equal to K2 on the whole RCM-ordered CSR."""
+    from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV, rcm_csr
+    from gnnla_tpu_torch.parallel import build_sharded_stream
+    from gnnla_tpu_torch.problems import laplacian_2d
+
+    A = laplacian_2d(96, device="cuda").eliminate_zeros()
+    kern = build_sharded_stream(A, nccl_mesh, min_halo_tiles=1)
+    assert kern.h_tiles == 1
+    B, perm = rcm_csr(A.to_scipy().tocsr())
+    whole = CsrSpMV(B, device=torch.device("cuda"))
+    x = np.random.default_rng(3).standard_normal(A.n_rows).astype(
+        np.float32)
+    y = kern.apply(kern.shard(kern.to_padded(x)))
+    assert kern.fwd.launches == 1
+    want = whole(torch.from_numpy(x[perm]).cuda())
+    _close(y[: A.n_rows], want)
+
+
+def test_data_parallel_step_on_one_rank(nccl_mesh):
+    """train_jacobi with a one-rank "data" mesh gives the run without
+    one."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from gnnla_tpu_torch.training import TrainJacobiConfig, train_jacobi
+    cfg = dict(num_matrices=16, n_mesh=10, epochs=2, batch_size=8,
+               n_train=12, n_val=2, n_test=2, m_probes=8, cache_dir=None,
+               log_every=0)
+    data = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    _, h1 = train_jacobi(TrainJacobiConfig(**cfg), mesh=data)
+    _, h0 = train_jacobi(TrainJacobiConfig(**cfg))
+    for k in ("train_loss", "val_loss", "test_loss"):
+        np.testing.assert_allclose(h1[k], h0[k], rtol=1e-6)

@@ -13,7 +13,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gnnla_tpu")
 EXAMPLES = ("matvec", "residual_norm", "jacobi", "chebyshev", "power_method",
             "soc_interp", "vcycle", "multigrid_pcg", "train_jacobi",
-            "train_diffusion", "band_layout", "unstructured_ell")
+            "train_diffusion", "band_layout", "unstructured_ell",
+            "distributed")
+PARALLEL = ("partition", "collectives", "distributed", "spmv", "stencil",
+            "stream", "vcycle", "krylov", "hardware_check")
 
 
 def _port_files():
@@ -77,6 +80,10 @@ def test_port_files_found():
                  "gnnla_tpu_torch/utils/health.py",
                  "gnnla_tpu_torch/ops/bsr.py",
                  "gnnla_tpu_torch/examples/run_all.py",
+                 "gnnla_tpu_torch/training/data_parallel.py",
+                 "gnnla_tpu_torch/parallel/__init__.py",
+                 *(f"gnnla_tpu_torch/parallel/{name}.py"
+                   for name in PARALLEL),
                  *(f"gnnla_tpu_torch/examples/{name}.py"
                    for name in EXAMPLES)):
         assert must in files
@@ -105,6 +112,10 @@ def test_import_pulls_in_no_jax():
             "gnnla_tpu_torch.cli, gnnla_tpu_torch.utils, "
             "gnnla_tpu_torch.utils.metrics, gnnla_tpu_torch.utils.health, "
             "gnnla_tpu_torch.ops.bsr, gnnla_tpu_torch.examples.run_all, "
+            "gnnla_tpu_torch.parallel, "
+            "gnnla_tpu_torch.training.data_parallel, "
+            + ", ".join(f"gnnla_tpu_torch.parallel.{name}"
+                        for name in PARALLEL) + ", "
             + ", ".join(f"gnnla_tpu_torch.examples.{name}"
                         for name in EXAMPLES) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -178,6 +189,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             pass
     with pytest.raises(RuntimeError, match="device='cpu'"):
         health_probe()
+    from gnnla_tpu_torch.examples import distributed as dist_example
+    from gnnla_tpu_torch.parallel import initialize_distributed
+    from gnnla_tpu_torch.parallel.hardware_check import \
+        run_sharded_hardware_check
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_distributed("file:///nonexistent/store", 1, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sharded_hardware_check()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dist_example.main()
     # asked for explicitly, the CPU runs the plain versions
     assert laplacian_2d(4, device="cpu").device.type == "cpu"
 

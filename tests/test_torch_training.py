@@ -538,11 +538,13 @@ def test_train_with_stability_penalty_matches_jax(tmp_path):
 
 
 def test_train_refuses_data_parallel_and_unknown_layouts(datasets):
+    """Data-parallel training needs a "data" mesh or a process group of
+    n_devices ranks (tests/test_torch_parallel_train.py runs it)."""
     _, dt = datasets
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(RuntimeError, match="initialized process group"):
         t_train.train(t_train.TrainJacobiConfig(**BASE, n_devices=8),
                       device=CPU)
-    with pytest.raises(NotImplementedError, match="distribution slice"):
+    with pytest.raises(TypeError, match="'data' axis"):
         t_train.train(t_train.TrainJacobiConfig(**BASE), mesh=object(),
                       device=CPU)
     with pytest.raises(ValueError, match="loss layout"):
