@@ -299,6 +299,37 @@ world of one NCCL rank unless said otherwise:
                     report whether NCCL takes them. Correctness only.
  41. hw_check     — `run_sharded_hardware_check(device="cuda")`: its
                     dict.
+The twins of the JAX repository's scratch/ scripts (gnnla_tpu_torch/
+scratch/), on two fixtures built once: the Delaunay Laplacian of 1,048,576
+points (proto_ellw.py's) and the k-NN-32 Laplacian of as many in RCM order
+(bench_stream.py's):
+ 42. scratch_ellw  — K6 (`csrc/ellw_spmv.cu`) through `proto_ellw`: at its
+                    default 16,384 points, on the 1M Delaunay Laplacian
+                    and on the k-NN-32 Laplacian: error against scipy
+                    below 1e-5 of max|y|, K6 bitwise its plain version in
+                    the window path chosen from W (and in the other one
+                    where W fits a block's shared memory), exactly 22
+                    launches each; K, W, padding waste; K6's flushed time
+                    beside K2's and cuSPARSE's on the same matrix.
+ 43. scratch_gather — K7 and K8 (`csrc/gather_probe.cu`) through
+                    `probe_dyngather` at its script's sizes: bitwise numpy
+                    and the plain versions, 22 launches a probe, gathers
+                    per second; K8 against `torch.gather`, K7 against
+                    `torch.take` times vals (two calls); `probe_gather`'s
+                    five formulations at n = 1M (plain PyTorch).
+ 44. scratch_stream_probe — `probe_stream`: 2 x 1024 rows of 5 random
+                    edges on K6 (`from_slots`) and K2 against the dense
+                    A @ x (below 1e-5), K6 bitwise its plain version.
+ 45. scratch_ablate — K9 (`csrc/csr_ablate.cu`) through `ablate_stream` on
+                    the scaled, RCM-ordered 1M Delaunay Laplacian: each
+                    variant bitwise its plain version, `full` bitwise K2;
+                    ms flushed and warm per variant, the stage costs as
+                    differences from full; the same on phase 12's A_rcm,
+                    the grid's operator, beside the Delaunay one.
+ 46. scratch_bench_stream — `bench_stream` on the k-NN-32 Laplacian: K2
+                    against scipy and its plain version (1e-5), the VJP
+                    against 2 A^T (A x) (1e-4), edges/s over chained
+                    applies, the scipy ratio; a `csr_spmv[knn32_rcm]` row.
 Then the script's seconds (`script`).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
@@ -377,10 +408,20 @@ from gnnla_tpu_torch.ops.stencil_kernel import (TILES, StencilCall,
                                                 stencil_launches, tile_form)
 from gnnla_tpu_torch.ops.stream_op import (RectStreamOperator,
                                            StreamOperator, csr_pair)
-from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, csr_spmv_plain,
-                                             entry_rows, rcm_csr)
+from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, csr_spmv_cuda,
+                                             csr_spmv_plain, entry_rows,
+                                             rcm_csr)
 from gnnla_tpu_torch.problems import laplacian_2d
 from gnnla_tpu_torch.problems.small_band import small_band_matrix_host
+from gnnla_tpu_torch.ops.ellw_spmv import ELLW_SMEM_BYTES, ellw_cuda
+from gnnla_tpu_torch.ops.gather_probe import (GatherProbe, axis0_cuda,
+                                              axis0_plain, axis1_cuda,
+                                              axis1_plain)
+from gnnla_tpu_torch.ops.stream_ablate import (VARIANTS, StreamAblation,
+                                               variant_bytes)
+from gnnla_tpu_torch.scratch import (ablate_stream, bench_stream,
+                                     probe_dyngather, probe_gather,
+                                     probe_stream, proto_ellw)
 from gnnla_tpu_torch.evaluation import (eigen_analysis, freq_study_errors,
                                         ood_extrapolation)
 from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
@@ -425,6 +466,17 @@ K2_ROW = ("csr_spmv", "gnnla_tpu_torch/csrc/csr_spmv.cu",
 K4_ROW = ("gnnla_tpu_torch/csrc/stencil.cu",
           "gnnla_tpu/ops/pallas_stencil.py:126")
 K5_ROW = ("gnnla_tpu_torch/csrc/health.cu", "bench.py:148")
+K6_ROW = ("gnnla_tpu_torch/csrc/ellw_spmv.cu", "scratch/proto_ellw.py:66")
+K7_ROW = ("gnnla_tpu_torch/csrc/gather_probe.cu",
+          "scratch/probe_dyngather.py:14")
+K8_ROW = ("gnnla_tpu_torch/csrc/gather_probe.cu",
+          "scratch/probe_dyngather.py:67")
+K9_ROW = ("gnnla_tpu_torch/csrc/csr_ablate.cu",
+          "scratch/ablate_stream.py:27")
+SCRATCH_N = 1 << 20
+SCRATCH_ITERS = 20  # the twins' timed launches (each run: 1 + 1 + 20)
+ABLATE_ITERS = 100  # per variant, warm and flushed: 1 + 2 * (1 + 100)
+BLOCK_SMEM_MAX = 227 * 1024  # shared memory a block can opt in to
 BSR_BLOCK = 128
 BSR_MAX_BLOCKS = 1 << 22  # to_bsr's default
 PCG_ITERS = 30
@@ -3069,6 +3121,307 @@ def dist_phases(A, A_p, b, lib, flush, smi) -> list:
     return rows
 
 
+# ------------------------------------------------------ the scratch twins
+def scratch_fixtures(smi) -> dict:
+    """The two 1,048,576-point fixtures of phases 42-46, built once: the
+    Delaunay Laplacian (natural order; proto_ellw.py's points, seed 7, and
+    the generator that then draws x) and the k-NN-32 Laplacian as
+    bench_stream.py orders it."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(7)
+    lap = proto_ellw.delaunay_laplacian(SCRATCH_N, rng)
+    t_del = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    knn = bench_stream.fixture(SCRATCH_N)
+    t_knn = time.perf_counter() - t0
+    emit(dict(phase="scratch_fixtures", n=SCRATCH_N, delaunay_s=t_del,
+              delaunay_nnz=lap.nnz, knn_s=t_knn, knn_nnz=knn.nnz,
+              nvidia_smi=smi))
+    return dict(delaunay=lap, rng=rng, knn=knn)
+
+
+def k2_beside(A_host, x, lib, flush) -> tuple:
+    """(K2's flushed ms, cuSPARSE's flushed ms) on the CSR A_host and x:
+    the yardsticks of a K6 row."""
+    k2 = CsrSpMV(A_host, device=x.device)
+    raw, _, _ = csr_raw(lib, k2, x)
+    mat = csr_tensor(k2)
+    compare(mat @ x, k2(x), "cuSPARSE beside K6")
+    return cuda_ms_cold(raw, 20, flush), cuda_ms_cold(lambda: mat @ x, 20,
+                                                      flush)
+
+
+def ellw_row(name: str, res: dict, A_host, lib, flush) -> dict:
+    """K6's row: the twin's run `res` on the CSR A_host. K6 (raw, not
+    counted) bitwise its plain version in its path and, where W fits a
+    block's shared memory, in the other; its flushed time beside K2's and
+    cuSPARSE's; the bound of the layout (every stored slot: the padding is
+    the layout's cost) and the nonzeros' floor."""
+    op, x = res["op"], res["x"]
+    require(op.launches == 2 + SCRATCH_ITERS, (name, op.launches))
+    want = op.plain(x)
+    got = op.raw(x)[:op.n]
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"K6[{name}] is not its plain version")
+    shared = op.path == "shared"
+    other_ms = None
+    if op.W * 4 <= BLOCK_SMEM_MAX:
+        def other():
+            return ellw_cuda(op.idx, op.val, op.start, x, op.W, not shared)
+        require(torch.equal(other()[:op.n], want),
+                f"K6[{name}] in its other window path")
+        other_ms = cuda_ms_cold(other, 20, flush)
+    k2_ms, lib_ms = k2_beside(A_host, x, lib, flush)
+    slots = op.idx.numel()
+    bound_ms, bound_by = bound(slots * 8 + op.start.numel() * 4 + op.n * 4
+                               + op.n_tiles * 1024 * 4, 2 * slots)
+    return dict(
+        name=f"ellw_spmv[{name}]", route="cuda", source=K6_ROW[0],
+        replaces=K6_ROW[1], launches=op.launches,
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms_cold(lambda: op.raw(x), 20, flush),
+        plain_ms=cuda_ms_cold(lambda: op.plain(x), 5, flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+        path=op.path, other_path_ms=other_ms, k2_ms=k2_ms, K=op.K, W=op.W,
+        tiles=op.n_tiles, nnz=op.nnz, padding_waste=op.padding_waste,
+        nnz_floor_ms=bound(op.nnz * 8 + 2 * op.n * 4, 2 * op.nnz)[0],
+        rel_err_vs_scipy=res["rel_err"])
+
+
+def scratch_ellw(fx, dev, lib, flush, smi) -> list:
+    """Phase 42: K6 at the script's default size, on the 1M Delaunay
+    Laplacian in its RCM order and on the k-NN-32 Laplacian."""
+    rows, t0 = [], time.perf_counter()
+    res = proto_ellw.main([])  # the script's own fixture, n = 16,384
+    rng = np.random.default_rng(7)
+    small = proto_ellw.rcm_ordered(proto_ellw.delaunay_laplacian(
+        proto_ellw.N_DEFAULT, rng))
+    rows.append(ellw_row("delaunay_16K", res, small, lib, flush))
+    d_rcm = proto_ellw.rcm_ordered(fx["delaunay"])
+    x = fx["rng"].standard_normal(SCRATCH_N).astype(np.float32)
+    res = proto_ellw.run(d_rcm, x, dev)
+    rows.append(ellw_row("delaunay_1M", res, d_rcm, lib, flush))
+    x = np.random.default_rng(0).standard_normal(SCRATCH_N).astype(
+        np.float32)
+    res = proto_ellw.run(fx["knn"], x, dev)
+    rows.append(ellw_row("knn32_1M", res, fx["knn"], lib, flush))
+    emit(dict(phase="scratch_ellw", seconds=time.perf_counter() - t0,
+              smem_budget_bytes=ELLW_SMEM_BYTES,
+              rows=[{k: r[k] for k in ("name", "path", "K", "W", "tiles",
+                                       "nnz", "padding_waste", "ms",
+                                       "other_path_ms", "k2_ms",
+                                       "library_ms", "bound_ms",
+                                       "rel_err_vs_scipy")} for r in rows],
+              nvidia_smi=smi))
+    return rows
+
+
+def gather_row(kind: str, res: dict, launches: int, flush) -> dict:
+    """A K7 (`axis1`) or K8 (`axis0`) row: the raw launch bitwise the
+    plain version, flushed times, the bytes bound, the library call."""
+    args = res["args"]
+    if kind == "axis1":
+        raw, plain = (lambda: axis1_cuda(*args)), (lambda: axis1_plain(*args))
+        win, lo, hi, vals = args
+        name, (src, rep) = f"gather_axis1[W={res['W']}]", K7_ROW
+        idx = (hi.long() * 128 + lo.long())
+        two = cuda_ms_cold(lambda: torch.take(win, idx) * vals, 20, flush)
+        require(torch.equal(torch.take(win, idx) * vals, plain()),
+                "take * vals differs from K7's plain version")
+        lib_ms, extra = None, dict(library_two_calls_ms=two,
+                                   library_two_calls="torch.take(win, idx) "
+                                   "* vals (idx = 128 hi + lo, made once)")
+        bytes_moved = 16 * vals.numel() + win.numel() * 4
+        flops = vals.numel()
+    else:
+        raw, plain = (lambda: axis0_cuda(*args)), (lambda: axis0_plain(*args))
+        win, idx = args
+        name, (src, rep) = f"gather_axis0[R={win.shape[0]}]", K8_ROW
+        idx2 = idx.long().view(-1, 128)
+        require(torch.equal(torch.gather(win, 0, idx2).view(idx.shape),
+                            plain()), "torch.gather differs from K8's plain")
+        lib_ms = cuda_ms_cold(lambda: torch.gather(win, 0, idx2), 20, flush)
+        extra = dict(path=res["path"])
+        bytes_moved = 8 * idx.numel() + win.numel() * 4
+        flops = 0
+    got, want = raw(), plain()
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"{name} is not its plain version")
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    ms = cuda_ms_cold(raw, 20, flush)
+    return dict(name=name, route="cuda", source=src, replaces=rep,
+                launches=launches, max_abs_err=float((got - want).abs().max()),
+                ms=ms, plain_ms=cuda_ms_cold(plain, 5, flush),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                elements=got.numel(), per_s_flushed=got.numel() / (ms * 1e-3),
+                per_s_warm=res["per_s"], **extra)
+
+
+def scratch_gather(dev, flush, smi) -> list:
+    """Phase 43: the gather probes at probe_dyngather.py's sizes, then
+    probe_gather's formulations at n = 1M."""
+    t0 = time.perf_counter()
+    probe = GatherProbe()
+    rows = []
+    for kind, kw in (("axis0", dict(R=8, n_blocks=512)),
+                     ("axis0", dict(R=512, n_blocks=64)),
+                     ("axis1", dict(n_chunks=8)), ("axis1", dict(n_chunks=16)),
+                     ("axis1", dict(n_chunks=32))):
+        before = probe.launches[kind]
+        fn = (probe_dyngather.probe_axis0 if kind == "axis0"
+              else probe_dyngather.probe_axis1)
+        res = fn(dev, probe=probe, **kw)
+        launches = probe.launches[kind] - before
+        require(launches == 2 + SCRATCH_ITERS, (kind, kw, launches))
+        rows.append(gather_row(kind, res, launches, flush))
+        del res
+    forms = probe_gather.run(SCRATCH_N, dev)
+    emit(dict(phase="scratch_gather", seconds=time.perf_counter() - t0,
+              launches=probe.launches,
+              probes=[{k: r[k] for k in ("name", "ms", "per_s_flushed",
+                                         "per_s_warm", "bound_ms",
+                                         "library_ms")} for r in rows],
+              probe_gather=forms, nvidia_smi=smi))
+    return rows
+
+
+def scratch_stream_probe(dev, lib, flush, smi) -> dict:
+    """Phase 44: probe_stream's fixture on K6 and K2."""
+    out = probe_stream.run(dev)
+    ell, csr, x = out["ell"], out["csr"], out["x"]
+    require(ell.launches == csr.launches == 2 + SCRATCH_ITERS,
+            (ell.launches, csr.launches))
+    want = ell.plain(x)
+    got = ell.raw(x)[:ell.n]
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "K6[stream_probe] is not its plain")
+    raw_k2, _, _ = csr_raw(lib, csr, x)
+    mat = csr_tensor(csr)
+    bound_ms, bound_by = bound(ell.idx.numel() * 8 + ell.start.numel() * 4
+                               + ell.n * 4 + ell.n_tiles * 4096,
+                               2 * ell.idx.numel())
+    row = dict(name="ellw_spmv[stream_probe]", route="cuda",
+               source=K6_ROW[0], replaces=K6_ROW[1], launches=ell.launches,
+               max_abs_err=float((got - want).abs().max()),
+               ms=cuda_ms_cold(lambda: ell.raw(x), 20, flush),
+               plain_ms=cuda_ms_cold(lambda: ell.plain(x), 5, flush),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=cuda_ms_cold(lambda: mat @ x, 20, flush),
+               path=ell.path, K=ell.K, W=ell.W, tiles=ell.n_tiles,
+               k2_ms=cuda_ms_cold(raw_k2, 20, flush),
+               replaces_also="scratch/probe_stream.py:184 (main; kernel2 "
+               ":106): the same function, no kernel of its own")
+    emit(dict(phase="scratch_stream_probe", K=ell.K, W=ell.W,
+              rel_err_k6=out["K6"]["rel_err"], rel_err_k2=out["K2"]["rel_err"],
+              k2_launches=csr.launches, row=row, nvidia_smi=smi))
+    return row
+
+
+def scratch_ablate(fx, dev, lib, flush, smi) -> list:
+    """Phase 45: K9's variants on the ablation's operator."""
+    t0 = time.perf_counter()
+    A = ablate_stream.fixture(fx["delaunay"])
+    t_fix = time.perf_counter() - t0
+    out = ablate_stream.run(A, dev, iters=ABLATE_ITERS, flush=flush)
+    abl, k2, x = out["ablation"], out["k2"], out["x"]
+    mat = csr_tensor(k2)
+    lib_ms = cuda_ms_cold(lambda: mat @ x, 20, flush)
+    rows = []
+    for v in VARIANTS:
+        require(abl.launches[v] == 3 + 2 * ABLATE_ITERS, (v, abl.launches))
+        got, want = abl.raw(v, x), abl.plain(v, x)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"K9[{v}] is not its plain version")
+        r = out["variants"][v]
+        # a multiply or add and an add a nonzero; noscan's one product
+        bound_ms, bound_by = bound(variant_bytes(k2, v),
+                                   k2.nnz * (1 if v == "noscan" else 2))
+        computes_ax = v in ("full", "nomatmul", "nodeposit")
+        rows.append(dict(
+            name=f"csr_ablate[{v}]", route="cuda", source=K9_ROW[0],
+            replaces=K9_ROW[1], launches=abl.launches[v],
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms_cold(lambda: abl.raw(v, x), 20, flush),
+            plain_ms=cuda_ms_cold(lambda: abl.plain(v, x), 3, flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms if computes_ax else None,
+            ms_warm=r["ms_warm"], ms_flushed_twin=r["ms_flushed"],
+            stage_ms_warm=r.get("stage_ms_warm"),
+            stage_ms_flushed=r.get("stage_ms_flushed"),
+            dropped=ablate_stream.DROPPED.get(v)))
+    # the same variants on the stream leg's A_rcm (phase 12), the grid's
+    # operator: raw launches, uncounted
+    a_rcm = SHARED.pop("a_rcm_k2")
+    abl_g = StreamAblation(a_rcm)
+    x_g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        a_rcm.shape[1]).astype(np.float32)).to(x.device)
+    grid = {}
+    for v in VARIANTS:
+        got = abl_g.raw(v, x_g)
+        require(torch.equal(got, abl_g.plain(v, x_g)), f"K9[{v}] on A_rcm")
+        grid[v] = dict(ms_flushed=cuda_ms_cold(lambda: abl_g.raw(v, x_g),
+                                               ABLATE_ITERS, flush),
+                       ms_warm=cuda_ms(lambda: abl_g.raw(v, x_g),
+                                       iters=2 * ABLATE_ITERS))
+    for v in VARIANTS[1:]:
+        for key in ("flushed", "warm"):
+            grid[v][f"stage_ms_{key}"] = (grid["full"][f"ms_{key}"]
+                                          - grid[v][f"ms_{key}"])
+    emit(dict(phase="scratch_ablate", fixture_s=t_fix, n=A.shape[0],
+              nnz=A.nnz, row_blocks=k2.row_blocks.shape[0] - 1,
+              full_bitwise_k2=True, variants=out["variants"],
+              a_rcm=dict(n=a_rcm.shape[0], nnz=a_rcm.nnz,
+                         row_blocks=a_rcm.row_blocks.shape[0] - 1,
+                         variants=grid),
+              nvidia_smi=smi))
+    return rows
+
+
+def scratch_bench_stream(fx, dev, lib, flush, smi) -> dict:
+    """Phase 46: bench_stream on the k-NN-32 Laplacian; K2's row there."""
+    t0 = time.perf_counter()
+    out = bench_stream.run(fx["knn"], dev)
+    mv, x = out["op"], out["x"]
+    require(mv.launches == 2 + 6 * 100 and out["op_t"].launches == 1,
+            (mv.launches, out["op_t"].launches))
+    raw, bytes_moved, flops = csr_raw(lib, mv, x)
+    mat = csr_tensor(mv)
+    want = mv.plain(x)
+    got = csr_spmv_cuda(mv.row_ptr, mv.cols, mv.vals, x, mv.shape[0],
+                        mv.row_blocks)  # uncounted: a comparison
+    err = compare(got, want, "K2 on the k-NN-32 Laplacian")
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    row = dict(name="csr_spmv[knn32_rcm]", route="cuda", source=K2_ROW[1],
+               replaces=K2_ROW[2], launches=mv.launches,
+               max_abs_err=err["max_abs_err"],
+               ms=cuda_ms_cold(raw, 20, flush),
+               plain_ms=cuda_ms_cold(lambda: mv.plain(x), 5, flush),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=cuda_ms_cold(lambda: mat @ x, 20, flush),
+               **k2_fields(mv))
+    emit(dict(phase="scratch_bench_stream",
+              seconds=time.perf_counter() - t0, n=fx["knn"].shape[0],
+              nnz=fx["knn"].nnz, rel_err=out["rel_err"],
+              rel_err_plain=out["rel_err_plain"],
+              vjp_rel_err=out["vjp_rel_err"],
+              edges_per_s=out["edges_per_s"],
+              ms_per_apply_chained=out["ms_per_apply"],
+              scipy_edges_per_s=out["scipy_edges_per_s"],
+              ratio=out["ratio"], nvidia_smi=smi))
+    return row
+
+
+def scratch_phases(dev, lib, flush, smi) -> list:
+    """Phases 42-46; returns their kernels rows."""
+    fx = scratch_fixtures(smi)
+    rows = scratch_ellw(fx, dev, lib, flush, smi)
+    rows += scratch_gather(dev, flush, smi)
+    rows.append(scratch_stream_probe(dev, lib, flush, smi))
+    rows += scratch_ablate(fx, dev, lib, flush, smi)
+    rows.append(scratch_bench_stream(fx, dev, lib, flush, smi))
+    return rows
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
@@ -3283,11 +3636,14 @@ def main() -> int:
     del ds, te, model
     eigen_phase(dev, smi)
     bsr_phase(A_p, S, flush, smi)
+    SHARED["a_rcm_k2"] = S.fwd  # K2 on A_rcm: phase 45 ablates it too
     del S
     torch.cuda.empty_cache()  # the subprocesses below share the card
     cli_examples_phases(smi)
     kernels += dist_phases(A, A_p, b, lib, flush, smi)
     del A_p
+    torch.cuda.empty_cache()
+    kernels += scratch_phases(dev, lib, flush, smi)
     kernels.append(k5_row)
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -24,7 +24,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("dia_spmv.cu", "csr_spmv.cu", "csr_spmm.cu", "stencil.cu",
-           "health.cu")
+           "health.cu", "ellw_spmv.cu", "gather_probe.cu", "csr_ablate.cu")
+HEADERS = ("csr_spmv_body.cuh",)  # included by sources: in the hash
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC"]
 
@@ -45,7 +46,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
@@ -120,6 +121,17 @@ def load(force: bool = False) -> ctypes.CDLL:
                                 ci, ci, ci, ci, ci, ci, vp]
     lib.health_f32.restype = ci
     lib.health_f32.argtypes = [vp, vp, ctypes.c_int64, vp]
+    lib.ellw_spmv_f32.restype = ci
+    lib.ellw_spmv_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, ci, vp, vp]
+    lib.gather_axis1_f32.restype = ci
+    lib.gather_axis1_f32.argtypes = [vp, ci, vp, vp, vp, vp,
+                                     ctypes.c_longlong, vp]
+    lib.gather_axis0_f32.restype = ci
+    lib.gather_axis0_f32.argtypes = [vp, ci, vp, vp, ctypes.c_longlong, ci,
+                                     vp]
+    lib.csr_ablate_f32.restype = ci
+    lib.csr_ablate_f32.argtypes = [ci, vp, vp, vp, ci, vp, ci, ci, vp, vp,
+                                   vp]
     _info.update(path=lib_path, built=built, ptxas=report,
                  seconds=time.perf_counter() - t0)
     _lib = lib

@@ -38,103 +38,9 @@
 // order, then the block adds its threads' sums in a fixed tree. Such rows
 // agree with the plain version to f32 rounding, not bitwise.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;  // rows per short-row block, at most
-constexpr int kBudget = 2048;  // nonzeros staged at once (8 KB)
-constexpr int kLongRow = 64;   // longer rows are summed by a whole block
-
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float s_warp[kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  v = 0.0f;
-  if (warp == 0) {
-    v = lane < kThreads / 32 ? s_warp[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
-__global__ void __launch_bounds__(kThreads)
-csr_spmv_blocks(const int* __restrict__ row_ptr, const int* __restrict__ cols,
-                const float* __restrict__ vals,
-                const int* __restrict__ row_blocks, int nnz,
-                const float* __restrict__ x, float* __restrict__ y) {
-  __shared__ float prod[kBudget];
-  const int r0 = __ldg(row_blocks + blockIdx.x);
-  const int r1 = __ldg(row_blocks + blockIdx.x + 1);
-  const int p0 = __ldg(row_ptr + r0), p1 = __ldg(row_ptr + r1);
-
-  if (r1 - r0 == 1 && p1 - p0 > kLongRow) {  // a long row
-    float acc = 0.0f;
-    for (int p = p0 + threadIdx.x; p < p1; p += kThreads) {
-      const float v = __ldg(vals + p);
-      acc = __fadd_rn(acc, __fmul_rn(v, __ldg(x + __ldg(cols + p))));
-    }
-    acc = block_sum(acc);
-    if (threadIdx.x == 0) y[r0] = acc;
-    return;
-  }
-
-  // 16-byte loads where both arrays allow them (the port's own tensors do)
-  const bool vec = (((uintptr_t)cols | (uintptr_t)vals) & 15) == 0;
-  const int r = r0 + threadIdx.x;  // this thread's row, if r < r1
-  const int rs = r < r1 ? __ldg(row_ptr + r) : 0;
-  const int re = r < r1 ? __ldg(row_ptr + r + 1) : 0;
-  float acc = 0.0f;
-  for (int q = p0; q < p1; q += kBudget) {  // one chunk for the port's blocks
-    const int qe = min(q + kBudget, p1);
-    // products of [q, qe) into prod[p - q], 4 aligned nonzeros a thread
-    for (int g = (q >> 2) + threadIdx.x; 4 * g < qe; g += kThreads) {
-      const int b = 4 * g;
-      int c4[4];
-      float v4[4];
-      if (vec && b + 4 <= nnz) {
-        const int4 c = __ldg(reinterpret_cast<const int4*>(cols) + g);
-        const float4 v = __ldg(reinterpret_cast<const float4*>(vals) + g);
-        c4[0] = c.x;
-        c4[1] = c.y;
-        c4[2] = c.z;
-        c4[3] = c.w;
-        v4[0] = v.x;
-        v4[1] = v.y;
-        v4[2] = v.z;
-        v4[3] = v.w;
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const bool in = b + e >= q && b + e < qe;
-          c4[e] = in ? __ldg(cols + b + e) : 0;
-          v4[e] = in ? __ldg(vals + b + e) : 0.0f;
-        }
-      }
-      float x4[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool in = b + e >= q && b + e < qe;
-        x4[e] = in ? __ldg(x + c4[e]) : 0.0f;
-      }
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (b + e >= q && b + e < qe)
-          prod[b + e - q] = __fmul_rn(v4[e], x4[e]);
-      }
-    }
-    __syncthreads();
-    for (int p = max(rs, q); p < min(re, qe); ++p)
-      acc = __fadd_rn(acc, prod[p - q]);
-    __syncthreads();
-  }
-  if (r < r1) y[r] = acc;
-}
-
-}  // namespace
+// The kernel body is in csr_spmv_body.cuh, shared with K9's stage
+// ablation (csr_ablate.cu); K2 is its instantiation with every stage.
+#include "csr_spmv_body.cuh"
 
 // row_ptr [n_rows+1] int32, cols [nnz] int32, vals [nnz] f32, row_blocks
 // [n_blocks+1] int32 (increasing from 0 to n_rows, at most 256 rows a
@@ -148,7 +54,8 @@ extern "C" int csr_spmv_f32(const void* row_ptr, const void* cols,
   if (n_rows <= 0) return 0;
   if (n_blocks <= 0 || nnz < 0 || !row_blocks)
     return (int)cudaErrorInvalidValue;
-  csr_spmv_blocks<<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  csr_spmv_blocks<true, true, true>
+      <<<n_blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)row_ptr, (const int*)cols, (const float*)vals,
       (const int*)row_blocks, nnz, (const float*)x, (float*)y);
   return (int)cudaGetLastError();

@@ -93,6 +93,14 @@ def multi_segment_reduce(reduces: Sequence[str], data: torch.Tensor,
                       for r in reduces], dim=-1)
 
 
+def segment_normalize(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Divide each element by the L2 norm of its segment (an all-zero
+    segment gives NaN, as in JAX)."""
+    norms = torch.sqrt(segment_sum(data * data, segment_ids, num_segments))
+    return data / norms[segment_ids.long()]
+
+
 class DenseRowLayout:
     """Padded row-major edge layout of a fixed pattern: [N, K] gather
     indices (K = the largest row degree) and a mask, built on the host

@@ -20,7 +20,6 @@ previous epoch's validation loss at every step.
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 from typing import Optional, Tuple
 
@@ -33,7 +32,7 @@ from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
 from gnnla_tpu_torch.ops.band import choose_edge_layout
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.parallel.collectives import pmax, psum
-from gnnla_tpu_torch.training.checkpoints import save_checkpoint
+from gnnla_tpu_torch.training.checkpoints import CheckpointManager
 from gnnla_tpu_torch.training.data_parallel import DataParallel
 from gnnla_tpu_torch.training.datasets import (StackedGraphs,
                                                cosine_diffusion_dataset,
@@ -231,10 +230,10 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
             loss = loss_fn(*tensors)
         return float(loss if dp is None else dp.mean(loss))
 
-    if cfg.checkpoint_dir:
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     history = {"train_loss": [], "val_loss": [], "epoch_time_s": []}
     lead = dp is None or dp.rank == 0  # the rank that logs and saves
+    ckpt = (CheckpointManager(cfg.checkpoint_dir)
+            if lead and cfg.checkpoint_dir else None)
     best_val, since_best = np.inf, 0
     best_state = {k: v.clone() for k, v in model.state_dict().items()}
     val_loss = np.inf
@@ -262,10 +261,8 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
                                        or (epoch + 1) % cfg.log_every == 0):
             print(f"epoch {epoch + 1}: train {history['train_loss'][-1]:.5f} "
                   f"val {val_loss:.5f}")
-        if lead and cfg.checkpoint_dir:
-            save_checkpoint(os.path.join(cfg.checkpoint_dir,
-                                         f"epoch_{epoch:04d}.pt"),
-                            model, {"val_loss": val_loss})
+        if ckpt:
+            ckpt.save(epoch, model, metrics={"val_loss": val_loss})
         if val_loss < best_val - 1e-12:
             # the optimizer updates the parameters in place: keep a copy
             best_val, since_best = val_loss, 0
@@ -273,12 +270,12 @@ def train(config: TrainDiffusionConfig = TrainDiffusionConfig(),
         else:
             since_best += 1
             if since_best >= cfg.patience:
-                if lead and cfg.log_every:
+                if lead:
                     print(f"early stopping at epoch {epoch + 1}")
                 break
 
     model.load_state_dict(best_state)
     history["test_loss"] = eval_loss(te_t) if te_t is not None else None
-    if lead and cfg.log_every and te_t is not None:
+    if lead and te_t is not None:
         print(f"test loss: {history['test_loss']:.5f}")
     return model, history

@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import os
 import time
 from typing import Optional
 
@@ -38,7 +37,7 @@ from gnnla_tpu_torch.ops.band import BandLayout
 from gnnla_tpu_torch.ops.dia import DIAOperator
 from gnnla_tpu_torch.ops.stencil import stencil_classes
 from gnnla_tpu_torch.training import spectral_loss
-from gnnla_tpu_torch.training.checkpoints import save_checkpoint
+from gnnla_tpu_torch.training.checkpoints import CheckpointManager
 from gnnla_tpu_torch.training.data_parallel import DataParallel
 from gnnla_tpu_torch.training.datasets import (StackedGraphs,
                                                small_band_dataset)
@@ -326,8 +325,8 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
             loss = loss_fn(*map(put, stack), put(probes))
         return float(loss if dp is None else dp.mean(loss))
 
-    if cfg.checkpoint_dir:
-        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    ckpt = (CheckpointManager(cfg.checkpoint_dir)
+            if lead and cfg.checkpoint_dir else None)
 
     val_probes = _draw_probes(va, range(va.n_graphs), cfg.m_probes, rng)
     val_loss = np.inf
@@ -359,14 +358,12 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
                                        or (epoch + 1) % cfg.log_every == 0):
             print(f"epoch {epoch + 1}: train {history['train_loss'][-1]:.5f} "
                   f"val {val_loss:.5f} ({dt:.1f}s)")
-        if lead and cfg.checkpoint_dir:
-            save_checkpoint(os.path.join(cfg.checkpoint_dir,
-                                         f"epoch_{epoch:04d}.pt"),
-                            model, {"val_loss": val_loss})
+        if ckpt:
+            ckpt.save(epoch, model, metrics={"val_loss": val_loss})
 
     te_probes = _draw_probes(te, range(te.n_graphs), cfg.m_probes, rng)
     history["test_loss"] = whole_loss(te_stack, te_probes)
-    if lead and cfg.log_every:
+    if lead:
         print(f"test loss: {history['test_loss']:.5f}")
     return model, history
 

@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3, K4 and K5 against their plain PyTorch versions on
+"""Kernels K1 to K9 against their plain PyTorch versions on
 the card, their gradients there, K1's bf16 diagonal storage and compact
 layout (both launch forms, rebuilds), K3's float4 and scalar variants,
 the multilevel and Krylov solvers on the kernels, BSR against K2 and K3,
@@ -1251,6 +1251,119 @@ def test_cli_lists_the_grid_on_the_card(cuda):
 
 
 # ------------------------------------------------ distribution (1 rank)
+def _delaunay_rcm(n, seed=7):
+    """scratch/proto_ellw.py's fixture at n points (RCM order, f32)."""
+    from gnnla_tpu_torch.scratch.proto_ellw import (delaunay_laplacian,
+                                                    rcm_ordered)
+    return rcm_ordered(delaunay_laplacian(n, np.random.default_rng(seed)))
+
+
+def _wide_slots(n, reach, seed):
+    """Per-row slots (6 a row, duplicates allowed) within `reach` of the
+    diagonal: a window wider than K6's default shared-memory budget."""
+    gen = np.random.default_rng(seed)
+    rows = np.arange(n)[:, None]
+    cols = np.clip(rows + gen.integers(-reach, reach + 1, (n, 6)), 0, n - 1)
+    return cols, gen.standard_normal((n, 6)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["delaunay", "slots_wide"])
+@pytest.mark.parametrize("path", ["shared", "read-only cache"])
+def test_ellw_kernel_is_its_plain_version(cuda, case, path):
+    """K6 bitwise its plain version in both window paths, on the
+    proto_ellw fixture (3,000 points) and on slots with duplicate columns
+    whose window (W * 4 > 48 KB) needs the opt-in shared memory; the
+    wrapper launches the path W selects."""
+    from gnnla_tpu_torch.ops.ellw_spmv import (ELLW_SMEM_BYTES, EllwSpMV,
+                                               build_ellw, ellw_cuda,
+                                               from_slots)
+    if case == "delaunay":
+        meta = build_ellw(_delaunay_rcm(3000))
+    else:
+        meta = from_slots(*_wide_slots(20_000, 7000, 3))
+        assert meta["W"] * 4 > ELLW_SMEM_BYTES
+    op = EllwSpMV(meta, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        meta["n"]).astype(np.float32)).to(cuda)
+    want = op.plain(x)
+    y = ellw_cuda(op.idx, op.val, op.start, x, op.W, path == "shared")
+    torch.cuda.synchronize()
+    assert torch.equal(y[:op.n], want)
+    if op.path == path:
+        assert torch.equal(op.matvec(x), want) and op.launches == 1
+
+
+@pytest.mark.parametrize("n_chunks", [8, 16, 32])
+def test_gather_axis1_kernel_is_exact(cuda, n_chunks):
+    """K7 bitwise its plain version and numpy's win[idx] * vals."""
+    from gnnla_tpu_torch.ops.gather_probe import GatherProbe, axis1_plain
+    from gnnla_tpu_torch.scratch.probe_dyngather import axis1_inputs
+
+    win, lo, hi, vals, idx = axis1_inputs(64, n_chunks, 8)
+    args = [torch.from_numpy(a).to(cuda) for a in (win, lo, hi, vals)]
+    probe = GatherProbe()
+    out = probe.axis1(*args)
+    torch.cuda.synchronize()
+    assert probe.launches["axis1"] == 1
+    assert torch.equal(out, axis1_plain(*args))
+    assert np.array_equal(out.cpu().numpy(), win[idx] * vals)
+
+
+@pytest.mark.parametrize("R", [8, 512])
+def test_gather_axis0_kernel_is_exact(cuda, R):
+    """K8 bitwise its plain version, with its window in shared memory
+    (R = 8) and through the read-only cache (R = 512, 256 KB)."""
+    from gnnla_tpu_torch.ops.gather_probe import (GatherProbe, axis0_plain,
+                                                  axis0_shared)
+    from gnnla_tpu_torch.scratch.probe_dyngather import axis0_inputs
+
+    assert axis0_shared(R) == (R == 8)
+    win, idx = axis0_inputs(R, 4)
+    args = [torch.from_numpy(a).to(cuda) for a in (win, idx)]
+    probe = GatherProbe()
+    out = probe.axis0(*args)
+    torch.cuda.synchronize()
+    assert probe.launches["axis0"] == 1
+    assert torch.equal(out, axis0_plain(*args))
+    assert torch.equal(out, torch.gather(args[0], 0,
+                                         args[1].long().view(-1, 128))
+                       .view(out.shape))
+
+
+def test_ablation_variants_are_their_plain_versions(cuda):
+    """K9: every variant bitwise its plain version on the ablation's
+    fixture at 5,000 points; full bitwise K2 on the same CSR."""
+    from gnnla_tpu_torch.ops.stream_ablate import VARIANTS, StreamAblation
+    from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV
+    from gnnla_tpu_torch.scratch.ablate_stream import fixture
+    from gnnla_tpu_torch.scratch.proto_ellw import delaunay_laplacian
+
+    A = fixture(delaunay_laplacian(5000, np.random.default_rng(7)))
+    k2 = CsrSpMV(A, device=cuda)
+    abl = StreamAblation(k2)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        A.shape[0]).astype(np.float32)).to(cuda)
+    y_k2 = k2(x)
+    for v in VARIANTS:
+        y = abl(v, x)
+        torch.cuda.synchronize()
+        assert torch.equal(y, abl.plain(v, x)), v
+        assert abl.launches[v] == 1
+    assert torch.equal(abl("full", x), y_k2)
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("proto_ellw", ["--n", "3000"]), ("probe_dyngather", ["--scale", "64"]),
+    ("probe_stream", []), ("ablate_stream", ["--n", "3000"]),
+    ("bench_stream", ["4000"]), ("probe_gather", ["--n", "20000"])])
+def test_scratch_twin_on_the_card(cuda, module, argv):
+    """Each scratch twin's main at a small size on the card (its checks
+    raise on failure)."""
+    import importlib
+    assert importlib.import_module(
+        f"gnnla_tpu_torch.scratch.{module}").main(argv) is not None
+
+
 @pytest.fixture(scope="module")
 def nccl_mesh(tmp_path_factory):
     """A world of one NCCL rank on the card, for the module's tests."""

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no jax, flax or gnnla_tpu imports in
-gnnla_tpu_torch or chip_smoke.py, and no quiet CPU fallback."""
+gnnla_tpu_torch or chip_smoke.py (nor of the JAX repository's scratch/
+scripts), and no quiet CPU fallback."""
 
 import ast
 import os
@@ -10,13 +11,17 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gnnla_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gnnla_tpu",
+             "scratch")
 EXAMPLES = ("matvec", "residual_norm", "jacobi", "chebyshev", "power_method",
             "soc_interp", "vcycle", "multigrid_pcg", "train_jacobi",
             "train_diffusion", "band_layout", "unstructured_ell",
             "distributed")
 PARALLEL = ("partition", "collectives", "distributed", "spmv", "stencil",
             "stream", "vcycle", "krylov", "hardware_check")
+SCRATCH = ("proto_ellw", "probe_dyngather", "probe_stream", "ablate_stream",
+           "bench_stream", "probe_gather")
+KERNEL_OPS = ("ellw_spmv", "gather_probe", "stream_ablate")
 
 
 def _port_files():
@@ -84,6 +89,10 @@ def test_port_files_found():
                  "gnnla_tpu_torch/parallel/__init__.py",
                  *(f"gnnla_tpu_torch/parallel/{name}.py"
                    for name in PARALLEL),
+                 "gnnla_tpu_torch/scratch/__init__.py",
+                 *(f"gnnla_tpu_torch/scratch/{name}.py"
+                   for name in SCRATCH),
+                 *(f"gnnla_tpu_torch/ops/{name}.py" for name in KERNEL_OPS),
                  *(f"gnnla_tpu_torch/examples/{name}.py"
                    for name in EXAMPLES)):
         assert must in files
@@ -117,7 +126,11 @@ def test_import_pulls_in_no_jax():
             + ", ".join(f"gnnla_tpu_torch.parallel.{name}"
                         for name in PARALLEL) + ", "
             + ", ".join(f"gnnla_tpu_torch.examples.{name}"
-                        for name in EXAMPLES) + "; "
+                        for name in EXAMPLES) + ", "
+            + ", ".join(f"gnnla_tpu_torch.scratch.{name}"
+                        for name in SCRATCH) + ", "
+            + ", ".join(f"gnnla_tpu_torch.ops.{name}"
+                        for name in KERNEL_OPS) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -226,6 +239,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="not CUDA"):
         stencil_cuda(torch.zeros(1, 2, 2), torch.zeros(2, dtype=torch.int32),
                      torch.zeros(2, 2), 1, "plain")
+    from gnnla_tpu_torch.ops.ellw_spmv import ellw_cuda
+    from gnnla_tpu_torch.ops.gather_probe import axis0_cuda, axis1_cuda
+    from gnnla_tpu_torch.ops.stream_ablate import StreamAblation
+    from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV
+    import scipy.sparse as sp
+    i32 = torch.int32
+    with pytest.raises(ValueError, match="not CUDA"):
+        ellw_cuda(torch.zeros(1, 8, 128, dtype=i32), torch.zeros(1, 8, 128),
+                  torch.zeros(1, dtype=i32), x, 128, True)
+    with pytest.raises(ValueError, match="not CUDA"):
+        axis1_cuda(torch.zeros(128), torch.zeros(1, 128, dtype=i32),
+                   torch.zeros(1, 128, dtype=i32), torch.zeros(1, 128))
+    with pytest.raises(ValueError, match="not CUDA"):
+        axis0_cuda(torch.zeros(8, 128), torch.zeros(1, 128, dtype=i32))
+    ablation = StreamAblation(CsrSpMV(sp.eye(4, format="csr",
+                                             dtype="float32"), device="cpu"))
+    with pytest.raises(ValueError, match="not on"):
+        ablation.raw("full", x)
 
 
 def test_build_is_lazy():
@@ -236,7 +267,11 @@ def test_build_is_lazy():
             "gnnla_tpu_torch.ops.stencil_kernel, "
             "gnnla_tpu_torch.training, gnnla_tpu_torch.utils, "
             "gnnla_tpu_torch.ops.bsr, gnnla_tpu_torch.cli, "
-            "gnnla_tpu_torch.examples.run_all; "
+            "gnnla_tpu_torch.examples.run_all, "
+            + ", ".join(f"gnnla_tpu_torch.scratch.{name}"
+                        for name in SCRATCH) + ", "
+            + ", ".join(f"gnnla_tpu_torch.ops.{name}"
+                        for name in KERNEL_OPS) + "; "
             "from gnnla_tpu_torch import _build; "
             "raise SystemExit(0 if _build._lib is None else 1)")
     env = dict(os.environ, PYTHONPATH=ROOT)
