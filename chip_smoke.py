@@ -330,6 +330,38 @@ points (proto_ellw.py's) and the k-NN-32 Laplacian of as many in RCM order
                     against scipy and its plain version (1e-5), the VJP
                     against 2 A^T (A x) (1e-4), edges/s over chained
                     applies, the scipy ratio; a `csr_spmv[knn32_rcm]` row.
+The artifact pipelines (`gnnla_tpu_torch.scripts`) at full width, cut in
+depth, and the multichip dry run:
+ 47. repro_jacobi   — `reproduce_jacobi.pipeline` on phase 30's 1000
+                    matrices at n = 38, widths (50, 20, 1), batch 100, 2
+                    epochs: the six baselines within 1e-5 of
+                    artifacts/jacobi/results.json (data-only: the JAX-CPU
+                    gap is at most 2.9e-9, tests/test_torch_reproduce.py),
+                    the learned numbers finite; ms per step.
+ 48. repro_smoother — `smoother_twogrid.rho_table` on the committed
+                    params.npz and params_stable.npz, carried across, over
+                    the first 30 test matrices: the omega = 2/3 rho mean and
+                    max within 1e-6 of smoother_twogrid.json (JAX-CPU gap
+                    0), the learned and stable means within 1e-4 of the
+                    JAX-CPU constants (equal to the artifact's).
+ 49. repro_stable   — the stable twin's configuration, warm-started from
+                    the committed params.npz (whose spectrum amplifies, so
+                    the penalty is active: the first batch's loss with it
+                    exceeds the loss without), 2 epochs: finite.
+ 50. repro_diffusion — the committed diffusion model through the twin's
+                    OOD sweep and frequency study at n = 80 against the
+                    JAX-CPU constants (1e-4); then the twin's pipeline, 2
+                    epochs of the flagship combination on phase 26's
+                    dataset: finite.
+ 51. repro_grid     — the five combinations at 300 x n = 48, 2 epochs
+                    each: finite, best_index the argmin of the val loss.
+ 52. dryrun         — `dryrun_multichip(2)` on two gloo ranks sharing card
+                    0 (mesh data 2 x rows 1) and `dryrun_multichip(1)` on
+                    one NCCL rank: the step's loss and new parameters
+                    within 1e-6 of the step with no mesh, the flat-mesh
+                    checks, the JAX line; K2's launches in the NCCL run
+                    (its sharded stream matvec and stream V-cycle) and a
+                    `csr_spmv[dryrun_stream_shard]` row.
 Then the script's seconds (`script`).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
@@ -338,7 +370,9 @@ Any failed check raises, and the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -422,6 +456,12 @@ from gnnla_tpu_torch.ops.stream_ablate import (VARIANTS, StreamAblation,
 from gnnla_tpu_torch.scratch import (ablate_stream, bench_stream,
                                      probe_dyngather, probe_gather,
                                      probe_stream, proto_ellw)
+from gnnla_tpu_torch.parallel.dryrun import dryrun_multichip
+from gnnla_tpu_torch.scripts import (grid_diffusion, reproduce_diffusion,
+                                     reproduce_jacobi,
+                                     reproduce_jacobi_stable,
+                                     smoother_twogrid)
+from gnnla_tpu_torch.scripts._common import jacobi_test_split
 from gnnla_tpu_torch.evaluation import (eigen_analysis, freq_study_errors,
                                         ood_extrapolation)
 from gnnla_tpu_torch.models.diffusion_gnn import DiffusionGNN
@@ -547,6 +587,20 @@ JAX_CPU_FREQ_ERRORS = [
 DINV_RTOL = 3e-2
 EIGEN_EXACT = ("evals_A", "evals_DinvA", "evals_TwoThirds_DinvA",
                "evals_opt_DinvA", "diag_A", "diag_opt_Dinv")
+# The committed Jacobi parameters' mean two-grid rho over the first 30 test
+# matrices, by the JAX package on the CPU (`twogrid_references()` in
+# tests/test_torch_chip_constants.py); smoother_twogrid.json holds the
+# same values to the last bit.
+JAX_CPU_CONVFAC_LEARNED_MEAN = 3.313771283992179
+JAX_CPU_CONVFAC_STABLE_MEAN = 0.6661099199210567
+# the artifact pipelines' phases: the data-only numbers against the
+# committed artifacts (JAX-CPU gaps measured: at most 2.9e-9 and 0), the
+# learned rho against the JAX-CPU constants
+BASELINE_RTOL = 1e-5
+RHO_W23_RTOL = 1e-6
+RHO_LEARNED_RTOL = 1e-4
+REPRO_EPOCHS = 2
+DRYRUN_TIMEOUT_S = 180
 
 
 def emit(obj) -> None:
@@ -3065,22 +3119,7 @@ def dist_2rank(smi) -> None:
             dist_rank, args=(os.path.join(tmp, f"store-{be}"), tmp, be),
             nprocs=2, join=False, start_method="spawn")
             for be in ("gloo", "nccl")}
-        errors = {}
-        deadline = time.monotonic() + DIST_2RANK_TIMEOUT_S
-        for be, ctx in ctxs.items():
-            try:
-                while not ctx.join(timeout=max(
-                        1.0, deadline - time.monotonic())):
-                    if time.monotonic() >= deadline:
-                        errors[be] = "timed out"
-                        break
-            except Exception as e:  # noqa: BLE001 — re-raised below
-                errors[be] = f"{type(e).__name__}: {e}"[-4000:]
-            finally:
-                for p in ctx.processes:
-                    if p.is_alive():
-                        p.kill()
-                    p.join(5)
+        errors = join_spawned(ctxs, DIST_2RANK_TIMEOUT_S)
         require("gloo" not in errors, errors)
         ranks = []
         for r in range(2):
@@ -3422,6 +3461,260 @@ def scratch_phases(dev, lib, flush, smi) -> list:
     return rows
 
 
+# ------------------------------------------------- the artifact pipelines
+def quiet(fn, *args, **kw):
+    """fn's result, its printed lines kept off this script's stdout."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def repro_jacobi(dev, smi, out_dir: str) -> None:
+    """Phase 47: the reproduce_jacobi twin's pipeline, 2 epochs, on phase
+    30's dataset; its six baselines against the committed results."""
+    with open(os.path.join(ARTIFACT, "results.json")) as f:
+        art = json.load(f)
+    cfg = TrainJacobiConfig(epochs=REPRO_EPOCHS, loss_layout="dia",
+                            cache_dir=None, log_every=0)
+    t0 = time.perf_counter()
+    res = quiet(reproduce_jacobi.pipeline, cfg, SHARED["jacobi_ds"],
+                out_dir, dev)
+    seconds = time.perf_counter() - t0
+    gaps = {}
+    for part in ("highfreq_damping_mean", "fullspectrum_damping_mean"):
+        require(np.isfinite(res[part]["learned"]), res[part])
+        for k in ("w1", "w23", "opt"):
+            gaps[f"{part}.{k}"] = rel_gap(res[part][k], art[part][k])
+            require(gaps[f"{part}.{k}"] <= BASELINE_RTOL,
+                    (part, k, res[part][k], art[part][k]))
+    require(res["n_test_matrices"] == 150, res["n_test_matrices"])
+    with open(os.path.join(out_dir, "history.json")) as f:
+        hist = json.load(f)
+    require(bool(np.isfinite(hist["train_loss"] + hist["val_loss"]
+                             + [hist["test_loss"]]).all()), hist)
+    steps = cfg.n_train // cfg.batch_size
+    emit(dict(phase="repro_jacobi", epochs=REPRO_EPOCHS, results=res,
+              baseline_rel_gaps=gaps, history=hist,
+              ms_per_step_with_probes=[1e3 * t / steps
+                                       for t in hist["epoch_time_s"]],
+              train_s=res["train_seconds"], seconds=seconds,
+              nvidia_smi=smi))
+
+
+def repro_smoother(dev, smi) -> None:
+    """Phase 48: the two-grid closure on the committed parameters."""
+    with open(os.path.join(ARTIFACT, "smoother_twogrid.json")) as f:
+        art = json.load(f)
+    cfg = smoother_twogrid.load_config(ARTIFACT)
+    model, model_s = smoother_twogrid.load_models(ARTIFACT, cfg, dev)
+    te = jacobi_test_split(SHARED["jacobi_ds"], cfg)
+    t0 = time.perf_counter()
+    out = quiet(smoother_twogrid.rho_table, te, model, model_s, 30)
+    seconds = time.perf_counter() - t0
+    gaps = {k: rel_gap(out[k], art[k])
+            for k in ("convfac_w23_mean", "convfac_w23_max")}
+    require(max(gaps.values()) <= RHO_W23_RTOL, (gaps, out))
+    for k, want in (("convfac_learned_mean", JAX_CPU_CONVFAC_LEARNED_MEAN),
+                    ("convfac_stable_mean", JAX_CPU_CONVFAC_STABLE_MEAN)):
+        gaps[k] = rel_gap(out[k], want)
+        require(gaps[k] <= RHO_LEARNED_RTOL, (k, out[k], want))
+    emit(dict(phase="repro_smoother", results=out, rel_gaps=gaps,
+              seconds=seconds, nvidia_smi=smi))
+
+
+def repro_stable(dev, smi) -> None:
+    """Phase 49: the stable fine-tune's configuration, 2 epochs from the
+    committed reference-recipe parameters (full-spectrum damping 2.19, so
+    the penalty is active from the first batch)."""
+    ds = SHARED["jacobi_ds"]
+    cfg = reproduce_jacobi_stable.stable_config(epochs=REPRO_EPOCHS)
+    cfg.cache_dir, cfg.log_every = None, 0
+    init = quiet(reproduce_jacobi_stable.warm_start, ARTIFACT)
+    model = TrainableJacobiMLP(cfg.widths, cfg.init_scheme, device=dev)
+    model.load_state_dict(init)
+    loss_fn = make_loss_fn(model, ds, cfg.omega, cfg.gelfand_k,
+                           stability_weight=cfg.stability_weight,
+                           stability_margin=cfg.stability_margin,
+                           stability_k=cfg.stability_k)
+    part = ds.select(np.arange(cfg.batch_size))
+    rng = np.random.default_rng(cfg.seed)
+    args = [f32_on(a, dev) for a in (
+        matrix_stack(part, "dia"), feature_stack(part), part.diags,
+        _draw_probes(part, range(part.n_graphs), cfg.m_probes, rng))]
+    full = f32_on(rng.standard_normal(
+        (part.n_graphs, ds.template.n_rows, cfg.m_probes)), dev)
+    with torch.no_grad():
+        penalty = float(loss_fn(*args, full) - loss_fn(*args))
+    require(penalty > 0, penalty)
+    t0 = time.perf_counter()
+    _, hist = quiet(train, cfg, dataset=ds, init_params=init, device=dev)
+    seconds = time.perf_counter() - t0
+    require(bool(np.isfinite(hist["train_loss"] + hist["val_loss"]
+                             + [hist["test_loss"]]).all()), hist)
+    emit(dict(phase="repro_stable", epochs=REPRO_EPOCHS,
+              first_batch_penalty=penalty, history=hist, seconds=seconds,
+              nvidia_smi=smi))
+
+
+def repro_diffusion(dev, smi, out_dir: str) -> None:
+    """Phase 50: the committed model through the twin's evaluation, then
+    the twin's pipeline for 2 epochs on phase 26's dataset."""
+    cfg = reproduce_diffusion.flagship_config(epochs=REPRO_EPOCHS)
+    cfg.cache_dir, cfg.log_every = None, 0
+    model = load_diffusion_params_npz(
+        os.path.join(DIFF_ARTIFACT, "params.npz"),
+        DiffusionGNN(**DIFF_CFG, device=dev))
+    t0 = time.perf_counter()
+    ood, freqs, errors = quiet(reproduce_diffusion.evaluate, model, cfg)
+    eval_s = time.perf_counter() - t0
+    gaps = {"ood": rel_gap(ood["loss"], JAX_CPU_OOD_LOSS),
+            "freq": rel_gap(errors, JAX_CPU_FREQ_ERRORS)}
+    require(max(gaps.values()) <= 1e-4, gaps)
+    t0 = time.perf_counter()
+    res = quiet(reproduce_diffusion.pipeline, cfg, SHARED["diffusion_full"],
+                out_dir, dev)
+    seconds = time.perf_counter() - t0
+    require(res["epochs_run"] == REPRO_EPOCHS and all(np.isfinite(
+        [res["test_loss"], res["freq_study_mean_err"],
+         *res["ood_loss_by_decade"].values()])), res)
+    emit(dict(phase="repro_diffusion", committed_rel_gaps_jax_cpu=gaps,
+              committed_eval_s=eval_s, results=res, seconds=seconds,
+              nvidia_smi=smi))
+
+
+def repro_grid(dev, smi) -> None:
+    """Phase 51: the five combinations at the grid's size, 2 epochs each."""
+    t0 = time.perf_counter()
+    ds = cosine_diffusion_dataset(300, n=48, max_freq=3.0, seed=41,
+                                  cache_dir=None, device=dev)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = quiet(grid_diffusion.run_grid, ds, 300, 48, REPRO_EPOCHS, 12, dev)
+    seconds = time.perf_counter() - t0
+    vals = [c["val_loss"] for c in out["combos"]]
+    require(len(vals) == 5 and all(np.isfinite(
+        vals + [c["test_loss"] for c in out["combos"]])), out)
+    require(out["best_index"] == int(np.argmin(vals)), out)
+    emit(dict(phase="repro_grid", results=out, dataset_s=data_s,
+              seconds=seconds, nvidia_smi=smi))
+
+
+def dryrun_summary(res: dict) -> dict:
+    return {k: res[k] for k in (
+        "loss", "reference_loss", "loss_rel_gap", "param_max_abs_gap",
+        "stencil_max_abs_err", "stream_max_abs_err",
+        "stream_vcycle_max_abs_err", "mesh", "h_tiles", "k2_launches",
+        "line")}
+
+
+def dryrun_rank(rank: int, store: str, out: str) -> None:
+    """One of two gloo processes on card 0 (phase 52), spawned:
+    `dryrun_multichip(2)` on a data 2 x rows 1 mesh."""
+    from gnnla_tpu_torch.parallel import collectives
+
+    torch.cuda.set_device(0)
+    initialize_distributed(f"file://{store}", 2, rank,
+                           device=torch.device("cuda", 0), backend="gloo",
+                           timeout=120)
+    res = quiet(dryrun_multichip, 2, device_type="cuda")
+    with open(os.path.join(out, f"dryrun{rank}.json"), "w") as f:
+        json.dump(dict(dryrun_summary(res), mesh=list(res["mesh"]),
+                       staged_transfers=collectives.staged_transfers), f)
+    dist.destroy_process_group()
+
+
+def join_spawned(ctxs: dict, timeout: float) -> dict:
+    """Wait for each group of spawned processes; {name: error} of those
+    that failed or outlived `timeout` (killed)."""
+    errors = {}
+    deadline = time.monotonic() + timeout
+    for name, ctx in ctxs.items():
+        try:
+            while not ctx.join(timeout=max(1.0,
+                                           deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    errors[name] = "timed out"
+                    break
+        except Exception as e:  # noqa: BLE001 — the caller re-raises
+            errors[name] = f"{type(e).__name__}: {e}"[-4000:]
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(5)
+    return errors
+
+
+def dryrun_phase(dev, lib, flush, smi) -> dict:
+    """Phase 52: the dry run on two gloo ranks sharing the card and on one
+    NCCL rank; returns the K2 row of the NCCL run's stream shard."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            dryrun_rank, args=(os.path.join(tmp, "store"), tmp), nprocs=2,
+            join=False, start_method="spawn")
+        errors = join_spawned({"gloo": ctx}, DRYRUN_TIMEOUT_S)
+        require(not errors, errors)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"dryrun{r}.json")) as f:
+                ranks.append(json.load(f))
+    two_s = time.perf_counter() - t0
+    require(ranks[0]["mesh"] == [2, 1] and ranks[0]["line"].startswith(
+        "dryrun_multichip(2): ") and ranks[0]["staged_transfers"] > 0, ranks)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        initialize_distributed(f"file://{os.path.join(store, 'rdv')}", 1, 0,
+                               device="cuda")
+        try:
+            res = quiet(dryrun_multichip, 1)
+        finally:
+            dist.destroy_process_group()
+    one_s = time.perf_counter() - t0
+    require(res["loss_rel_gap"] <= 1e-6 and res["param_max_abs_gap"]
+            <= 1e-6, dryrun_summary(res))
+    # the path's K2 launches: the shards' objects are new in this run
+    require(res["k2_launches"] > 0, res["k2_launches"])
+
+    csr = res["stream_kernel"].fwd
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        csr.shape[1]).astype(np.float32)).to(dev)
+    err = compare(csr(x), csr.plain(x), "dry run's K2 shard")
+    raw, bytes_moved, flops = csr_raw(lib, csr, x)
+    lib_mat = csr_tensor(csr)
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    row = dict(name="csr_spmv[dryrun_stream_shard]", route="cuda",
+               source=K2_ROW[1], replaces=K2_ROW[2],
+               via="gnnla_tpu/parallel/stream.py:145",
+               launches=res["k2_launches"], max_abs_err=err["max_abs_err"],
+               ms=cuda_ms_cold(raw, 20, flush),
+               plain_ms=cuda_ms_cold(lambda: csr.plain(x), 5, flush),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=cuda_ms_cold(lambda: lib_mat @ x, 20, flush),
+               shape=list(csr.shape), nnz=csr.nnz, **k2_fields(csr))
+    emit(dict(phase="dryrun", two_gloo_ranks=ranks, two_ranks_s=two_s,
+              one_nccl_rank=dryrun_summary(res), one_rank_s=one_s,
+              k2_row=row, nvidia_smi=smi))
+    return row
+
+
+def repro_phases(dev, lib, flush, smi) -> dict:
+    """Phases 47-52; returns the dry run's K2 row."""
+    with tempfile.TemporaryDirectory() as tmp:
+        jdir, ddir = (os.path.join(tmp, d) for d in ("jacobi", "diffusion"))
+        os.makedirs(jdir)
+        os.makedirs(ddir)
+        repro_jacobi(dev, smi, jdir)
+        repro_smoother(dev, smi)
+        repro_stable(dev, smi)
+        repro_diffusion(dev, smi, ddir)
+    del SHARED["diffusion_full"], SHARED["jacobi_ds"]
+    repro_grid(dev, smi)
+    return dryrun_phase(dev, lib, flush, smi)
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
@@ -3633,6 +3926,7 @@ def main() -> int:
     model = diffusion_serve(dev, ds, te, smi)
     diffusion_eval(dev, model, smi)
     diffusion_train(dev, ds, smi)
+    SHARED["diffusion_full"] = ds  # phase 50 trains the twin on it
     del ds, te, model
     eigen_phase(dev, smi)
     bsr_phase(A_p, S, flush, smi)
@@ -3644,6 +3938,7 @@ def main() -> int:
     del A_p
     torch.cuda.empty_cache()
     kernels += scratch_phases(dev, lib, flush, smi)
+    kernels.append(repro_phases(dev, lib, flush, smi))
     kernels.append(k5_row)
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -27,7 +27,7 @@ import torch
 from gnnla_tpu_torch.models.trainable_jacobi import (TrainableJacobiMLP,
                                                      jacobi_diag_features)
 from gnnla_tpu_torch.training.checkpoints import params_from_jax
-from gnnla_tpu_torch.training.datasets import StackedGraphs
+from gnnla_tpu_torch.training.datasets import StackedGraphs, host_eig_map
 
 
 def high_freq_modes(n_vertices: int, xy: np.ndarray) -> np.ndarray:
@@ -74,6 +74,38 @@ def _mlp(params, widths, init_scheme, device) -> TrainableJacobiMLP:
     return model
 
 
+def _analysis_row(job) -> Dict[str, np.ndarray]:
+    """One test matrix's arrays (host float64): job = (rows, cols, vals,
+    n, xy, d_learn, omega_learned)."""
+    rows, cols, vals, n, xy, d_learn, omega_learned = job
+    # the operator the JAX package densifies holds float32 values
+    A = np.zeros((n, n))
+    A[rows, cols] = vals.astype(np.float32)
+    modes = high_freq_modes(n, xy)
+    d = np.diag(A)
+    out = {"evals_A": _restricted_evals(A, modes)}
+    raw = _restricted_raw_evals(A / d[:, None], modes)
+    out["evals_DinvA"] = np.sort(np.abs(1.0 - raw))
+    out["evals_TwoThirds_DinvA"] = np.sort(np.abs(1.0 - (2.0 / 3.0) * raw))
+
+    # w_opt from the spectrum of D^-1 A; for symmetric A through the
+    # similar symmetric D^-1/2 A D^-1/2 (eigvalsh)
+    if (d > 0).all() and np.allclose(A, A.T, rtol=0.0,
+                                     atol=1e-12 * np.abs(A).max()):
+        s = 1.0 / np.sqrt(d)
+        evals_full = np.linalg.eigvalsh(A * s[:, None] * s[None, :])
+    else:
+        evals_full = np.linalg.eigvals(A / d[:, None]).real
+    w_opt = 2.0 / (np.min(evals_full) + np.max(evals_full))
+    out["evals_opt_DinvA"] = np.sort(np.abs(1.0 - w_opt * raw))
+    out["diag_opt_Dinv"] = w_opt / d
+    out["evals_learn_DinvA"] = _restricted_evals(
+        omega_learned * A / d_learn[:, None], modes)
+    out["diag_learn_Dinv"] = omega_learned / d_learn
+    out["diag_A"] = d
+    return out
+
+
 def eigen_analysis(params, dataset: StackedGraphs, *,
                    widths=(50, 20, 1), init_scheme: str = "reference",
                    omega_learned: float = 2.0 / 3.0,
@@ -85,7 +117,8 @@ def eigen_analysis(params, dataset: StackedGraphs, *,
 
     Returns the arrays the reference saves: evals_A, evals_DinvA,
     evals_TwoThirds_DinvA, evals_opt_DinvA, evals_learn_DinvA, diag_A,
-    diag_opt_Dinv, diag_learn_Dinv, hs, band_locs."""
+    diag_opt_Dinv, diag_learn_Dinv, hs, band_locs. The eigenproblems of
+    many matrices run on a host pool (`datasets.host_eig_map`)."""
     if dataset.coords is None:
         raise ValueError("eigen analysis needs vertex coordinates")
     dev = dataset.template.device
@@ -95,53 +128,26 @@ def eigen_analysis(params, dataset: StackedGraphs, *,
     rows, cols, _ = dataset.template.host_coo()
     n = dataset.template.n_rows
 
-    out = {k: [] for k in
-           ("evals_A", "evals_DinvA", "evals_TwoThirds_DinvA",
-            "evals_opt_DinvA", "evals_learn_DinvA",
-            "diag_A", "diag_opt_Dinv", "diag_learn_Dinv")}
-    hs, band_locs = [], []
+    jobs, hs, band_locs = [], [], []
     for i in range(n_graphs):
-        # the operator the JAX package densifies holds float32 values
-        A = np.zeros((n, n))
-        A[rows, cols] = dataset.vals[i].astype(np.float32)
-        modes = high_freq_modes(n, dataset.coords[i])
-        d = np.diag(A)
-
-        out["evals_A"].append(_restricted_evals(A, modes))
-        raw = _restricted_raw_evals(A / d[:, None], modes)
-        out["evals_DinvA"].append(np.sort(np.abs(1.0 - raw)))
-        out["evals_TwoThirds_DinvA"].append(
-            np.sort(np.abs(1.0 - (2.0 / 3.0) * raw)))
-
-        # w_opt from the spectrum of D^-1 A; for symmetric A through the
-        # similar symmetric D^-1/2 A D^-1/2 (eigvalsh)
-        if (d > 0).all() and np.allclose(A, A.T, rtol=0.0,
-                                         atol=1e-12 * np.abs(A).max()):
-            s = 1.0 / np.sqrt(d)
-            evals_full = np.linalg.eigvalsh(A * s[:, None] * s[None, :])
-        else:
-            evals_full = np.linalg.eigvals(A / d[:, None]).real
-        w_opt = 2.0 / (np.min(evals_full) + np.max(evals_full))
-        out["evals_opt_DinvA"].append(np.sort(np.abs(1.0 - w_opt * raw)))
-        out["diag_opt_Dinv"].append(w_opt / d)
-
         feats = jacobi_diag_features(
             dataset.template_nodiag.with_values(
                 dataset.offdiag_vals[i].astype(np.float32)),
             torch.from_numpy(dataset.diags[i].astype(np.float32)).to(dev))
         with torch.no_grad():
             d_learn = model(feats).double().cpu().numpy().ravel()
-        out["evals_learn_DinvA"].append(
-            _restricted_evals(omega_learned * A / d_learn[:, None], modes))
-        out["diag_learn_Dinv"].append(omega_learned / d_learn)
-
-        out["diag_A"].append(d)
+        jobs.append((rows, cols, dataset.vals[i], n, dataset.coords[i],
+                     d_learn, omega_learned))
         if dataset.meta is not None:
             hs.append(dataset.meta.get("h", np.zeros(n_graphs))[i])
             band_locs.append(
                 dataset.meta.get("band_loc", np.zeros(n_graphs))[i])
 
-    result = {k: np.stack(v) for k, v in out.items()}
+    per_graph = host_eig_map(_analysis_row, jobs)
+    result = {k: np.stack([r[k] for r in per_graph])
+              for k in ("evals_A", "evals_DinvA", "evals_TwoThirds_DinvA",
+                        "evals_opt_DinvA", "evals_learn_DinvA", "diag_A",
+                        "diag_opt_Dinv", "diag_learn_Dinv")}
     result["hs"] = np.asarray(hs)
     result["band_locs"] = np.asarray(band_locs)
     return result

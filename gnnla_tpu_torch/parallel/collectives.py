@@ -13,7 +13,8 @@ runs one program.
     way. A 1-rank ring gives t back (JAX's perm [(0, 0)] is the
     identity).
   * `psum(t, group)` — the sum over the ranks (all-reduce SUM), not
-    differentiable (the solvers' reductions).
+    differentiable (the solvers' reductions); `psum_replicated`, its
+    differentiable form for a loss that every rank computes alike.
   * `pmax(t, group)` — the max over the ranks.
   * `all_gather_tiled(t, group)` — the ranks' blocks concatenated along
     dim 0 in rank order (`all_gather(..., tiled=True)`).
@@ -109,6 +110,26 @@ def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
 def psum(t: torch.Tensor, group) -> torch.Tensor:
     """The sum of t over the group's ranks (a new tensor)."""
     return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+class _PsumReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum_replicated(t: torch.Tensor, group) -> torch.Tensor:
+    """`psum`, differentiable where every rank goes on to compute the same
+    value from the sum (a loss replicated over the group, each rank
+    backpropagating it): the cotangent of this rank's addend is then the
+    sum's own cotangent, passed through unchanged. Summing the cotangents
+    over the ranks instead would scale every gradient by the group's
+    size."""
+    return _PsumReplicated.apply(t, group)
 
 
 def pmax(t: torch.Tensor, group) -> torch.Tensor:

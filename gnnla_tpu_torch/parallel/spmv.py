@@ -43,11 +43,18 @@ def _halo_exchange(x_local: torch.Tensor, halo: int, group) -> torch.Tensor:
     right_halo = ring_shift(x_local[:halo], -1, group)
     left_halo = ring_shift(x_local[-halo:], 1, group)
     # the global edge blocks have no real neighbour; no real column
-    # reaches the wrapped values, but they are zeroed as in JAX
+    # reaches the wrapped values, but they are zeroed as in JAX. `where`
+    # keeps the zeroed shift in the autograd graph, so every rank's
+    # backward makes the same ring shifts (a cut shift would leave its
+    # partner's backward exchange unmatched)
     if idx == 0:
-        left_halo = torch.zeros_like(left_halo)
+        left_halo = torch.where(torch.zeros((), dtype=torch.bool,
+                                            device=left_halo.device),
+                                left_halo, torch.zeros_like(left_halo))
     if idx == n_dev - 1:
-        right_halo = torch.zeros_like(right_halo)
+        right_halo = torch.where(torch.zeros((), dtype=torch.bool,
+                                             device=right_halo.device),
+                                 right_halo, torch.zeros_like(right_halo))
     return torch.cat([left_halo, x_local, right_halo])
 
 

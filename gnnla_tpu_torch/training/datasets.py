@@ -56,6 +56,39 @@ def _parallel_map(fn, args_list, min_parallel: int = 64):
                         chunksize=max(1, len(args_list) // (4 * n_workers)))
 
 
+# the dense eigenproblems of the evaluation tools: fewer than this many
+# run in the calling process
+EIG_POOL_MIN_JOBS = 16
+_BLAS_THREAD_VARS = ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS",
+                     "MKL_NUM_THREADS")
+
+
+def host_eig_map(fn, jobs):
+    """[fn(j) for j in jobs] for dense host eigenproblems: in this process
+    for few jobs, on one core or with GNNLA_SERIAL_DATAGEN=1; else on
+    spawned workers, one a core, each with a one-thread BLAS. A threaded
+    BLAS in every worker oversubscribes the cores many times over (16
+    eigensolves of 1045^2 on 8 cores: 3.3 s with one thread a worker, 206
+    s with eight); spawned workers read the thread count as they load
+    their BLAS. `fn` is a module-level numpy function of its job."""
+    n_workers = min(os.cpu_count() or 1, len(jobs))
+    if (len(jobs) < EIG_POOL_MIN_JOBS or n_workers < 2
+            or os.environ.get("GNNLA_SERIAL_DATAGEN")):
+        return [fn(j) for j in jobs]
+    import multiprocessing as mp
+    saved = {k: os.environ.get(k) for k in _BLAS_THREAD_VARS}
+    os.environ.update({k: "1" for k in _BLAS_THREAD_VARS})
+    try:
+        with mp.get_context("spawn").Pool(processes=n_workers) as pool:
+            return pool.map(fn, jobs, chunksize=1)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _gen_small_band(args):
     return small_band_matrix_host(*args)
 

@@ -94,10 +94,12 @@ def _host(a) -> np.ndarray:
 
 
 def dinv_a_spectrum(op, diag) -> np.ndarray:
-    """Spectrum of D^{-1} A (host, dense, eval-only). For symmetric A with
-    positive diag, D^{-1} A is similar to D^{-1/2} A D^{-1/2}, so
-    `eigvalsh` applies; general eigenvalues otherwise."""
-    A = _host(op.to_dense())
+    """Spectrum of D^{-1} A (host, dense, eval-only); `op` an operator or
+    its dense matrix. For symmetric A with positive diag, D^{-1} A is
+    similar to D^{-1/2} A D^{-1/2}, so `eigvalsh` applies; general
+    eigenvalues otherwise."""
+    A = _host(op if isinstance(op, (np.ndarray, torch.Tensor))
+              else op.to_dense())
     d = _host(diag)
     if (d > 0).all() and np.allclose(A, A.T, rtol=0.0,
                                      atol=1e-12 * np.abs(A).max()):

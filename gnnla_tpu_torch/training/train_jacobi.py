@@ -40,6 +40,7 @@ from gnnla_tpu_torch.training import spectral_loss
 from gnnla_tpu_torch.training.checkpoints import CheckpointManager
 from gnnla_tpu_torch.training.data_parallel import DataParallel
 from gnnla_tpu_torch.training.datasets import (StackedGraphs,
+                                               host_eig_map,
                                                small_band_dataset)
 
 
@@ -368,33 +369,47 @@ def train(config: TrainJacobiConfig = TrainJacobiConfig(),
     return model, history
 
 
+def _baseline_row(job) -> tuple:
+    """(learned, w1, w23, opt) damping factors of one matrix, host
+    float64: job = (rows, cols, vals, n, diag, d_learn)."""
+    rows, cols, vals, n, diag, d_learn = job
+    A = np.zeros((n, n), np.float32)
+    A[rows, cols] = vals
+    # one spectrum of D^-1 A serves omega = 1, 2/3 and the optimum
+    lam = spectral_loss.dinv_a_spectrum(A, diag)
+    w_opt = 2.0 / (np.max(np.abs(lam)) + np.min(np.abs(lam)))
+    return (spectral_loss.damping_factor_exact(A, d_learn, 2.0 / 3.0),
+            float(np.max(np.abs(1.0 - lam))),
+            float(np.max(np.abs(1.0 - (2.0 / 3.0) * lam))),
+            float(np.max(np.abs(1.0 - w_opt * lam))))
+
+
 def evaluate_vs_baselines(params, dataset: StackedGraphs,
                           cfg: TrainJacobiConfig,
                           max_graphs: Optional[int] = None) -> dict:
     """Exact mean damping factors of the learned D (at omega = 2/3) and of
     omega = 1, 2/3 and the per-matrix optimal omega with D = diag(A), by
     dense eigenvalues on the host, over the whole split by default (the
-    reference's train.py:164-213). `params`: the MLP's state dict."""
+    reference's train.py:164-213). `params`: the MLP's state dict. The
+    eigenproblems of many matrices run on a host pool
+    (`datasets.host_eig_map`)."""
     dev = dataset.template.device
     model = TrainableJacobiMLP(cfg.widths, cfg.init_scheme, device=dev)
     model.load_state_dict(params)
-    out = {"learned": [], "w1": [], "w23": [], "opt": []}
     n_graphs = dataset.n_graphs if max_graphs is None else min(
         dataset.n_graphs, max_graphs)
+    rows, cols, _ = dataset.template.host_coo()
+    jobs = []
     for i in range(n_graphs):
-        op = dataset.template.with_values(dataset.vals[i].astype(np.float32))
-        diag = torch.from_numpy(dataset.diags[i].astype(np.float32)).to(dev)
+        diag = dataset.diags[i].astype(np.float32)
         feats = jacobi_diag_features(
             dataset.template_nodiag.with_values(
-                dataset.offdiag_vals[i].astype(np.float32)), diag)
+                dataset.offdiag_vals[i].astype(np.float32)),
+            torch.from_numpy(diag).to(dev))
         with torch.no_grad():
-            dlearn = model(feats).reshape(-1)
-        out["learned"].append(spectral_loss.damping_factor_exact(
-            op, dlearn, 2.0 / 3.0))
-        # one spectrum of D^-1 A serves omega = 1, 2/3 and the optimum
-        lam = spectral_loss.dinv_a_spectrum(op, diag)
-        out["w1"].append(float(np.max(np.abs(1.0 - lam))))
-        out["w23"].append(float(np.max(np.abs(1.0 - (2.0 / 3.0) * lam))))
-        w_opt = 2.0 / (np.max(np.abs(lam)) + np.min(np.abs(lam)))
-        out["opt"].append(float(np.max(np.abs(1.0 - w_opt * lam))))
-    return {k: float(np.mean(v)) for k, v in out.items()}
+            dlearn = model(feats).reshape(-1).cpu().numpy()
+        jobs.append((rows, cols, dataset.vals[i].astype(np.float32),
+                     dataset.template.n_rows, diag, dlearn))
+    per_graph = np.asarray(host_eig_map(_baseline_row, jobs))
+    return {k: float(np.mean(per_graph[:, j]))
+            for j, k in enumerate(("learned", "w1", "w23", "opt"))}

@@ -1,17 +1,18 @@
-"""The JAX-package reference values that `chip_smoke.py`'s diffusion phases
-hold the card to, and how they were made.
+"""The JAX-package reference values that `chip_smoke.py`'s diffusion and
+two-grid phases hold the card to, and how they were made.
 
 `chip_smoke.py` never imports JAX, so the values it needs from the JAX
 package (the committed diffusion model's test loss, OOD sweep and
-frequency study at n = 80, computed by `gnnla_tpu` on the CPU) are
-constants in the script. Regenerate them with
+frequency study at n = 80; the committed Jacobi parameters' mean two-grid
+rho, learned and stable, over the first 30 test matrices: all computed by
+`gnnla_tpu` on the CPU) are constants in the script. Regenerate them with
 
     JAX_PLATFORMS=cpu python tests/test_torch_chip_constants.py [CACHE_DIR]
 
 (about 5 minutes on 8 cores; the 1000-matrix dataset is cached in
-CACHE_DIR, default `data_cache`), which prints the three constants to
-paste into `chip_smoke.py`. The tier-1 test below recomputes the cheapest
-of them, the OOD sweep, and holds the script's constant to it.
+CACHE_DIR, default `data_cache`), which prints the five constants to
+paste into `chip_smoke.py`. The tier-1 tests below recompute the OOD
+sweep and the two rho means and hold the script's constants to them.
 """
 
 import importlib
@@ -28,6 +29,9 @@ from gnnla_tpu.evaluation.ood import ood_extrapolation
 from gnnla_tpu.models.diffusion_gnn import DiffusionGNN
 from gnnla_tpu.training.checkpoints import load_params_npz
 from gnnla_tpu.training.datasets import cosine_diffusion_dataset
+
+from test_torch_reproduce import (committed_jacobi_params,
+                                  jax_jacobi_test_split, jax_twogrid_rhos)
 
 j_train = importlib.import_module("gnnla_tpu.training.train_diffusion")
 
@@ -63,6 +67,24 @@ def test_chip_smoke_ood_constant_is_the_jax_value():
                                ood_reference(model, params), rtol=1e-6)
 
 
+def twogrid_references() -> dict:
+    """The mean cycle rho of the committed learned and stable Jacobi
+    parameters over the first 30 test matrices (the smoother phase's)."""
+    rho = jax_twogrid_rhos(jax_jacobi_test_split(30), 30, {
+        "learned": committed_jacobi_params(),
+        "stable": committed_jacobi_params("params_stable.npz")})
+    return {"JAX_CPU_CONVFAC_LEARNED_MEAN": float(rho["learned"].mean()),
+            "JAX_CPU_CONVFAC_STABLE_MEAN": float(rho["stable"].mean())}
+
+
+def test_chip_smoke_twogrid_constants_are_the_jax_values():
+    import chip_smoke
+
+    for name, want in twogrid_references().items():
+        np.testing.assert_allclose(getattr(chip_smoke, name), want,
+                                   rtol=1e-9, err_msg=name)
+
+
 def references(cache_dir: str) -> dict:
     """All three constants, from the JAX package on the CPU."""
     ds = cosine_diffusion_dataset(1000, n=N, max_freq=3.0, seed=41,
@@ -84,7 +106,7 @@ def references(cache_dir: str) -> dict:
     _, errors = freq_study_errors(params, model, n=N, max_freq=4.0)
     return {"JAX_CPU_TEST_LOSS": test_loss,
             "JAX_CPU_OOD_LOSS": ood_reference(model, params),
-            "JAX_CPU_FREQ_ERRORS": errors.tolist()}
+            "JAX_CPU_FREQ_ERRORS": errors.tolist(), **twogrid_references()}
 
 
 if __name__ == "__main__":

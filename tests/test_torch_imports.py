@@ -18,10 +18,13 @@ EXAMPLES = ("matvec", "residual_norm", "jacobi", "chebyshev", "power_method",
             "train_diffusion", "band_layout", "unstructured_ell",
             "distributed")
 PARALLEL = ("partition", "collectives", "distributed", "spmv", "stencil",
-            "stream", "vcycle", "krylov", "hardware_check")
+            "stream", "vcycle", "krylov", "hardware_check", "dryrun")
 SCRATCH = ("proto_ellw", "probe_dyngather", "probe_stream", "ablate_stream",
            "bench_stream", "probe_gather")
 KERNEL_OPS = ("ellw_spmv", "gather_probe", "stream_ablate")
+SCRIPTS = ("_common", "reproduce_jacobi", "reproduce_jacobi_stable",
+           "smoother_twogrid", "reproduce_diffusion", "grid_diffusion",
+           "gen_results")
 
 
 def _port_files():
@@ -93,6 +96,8 @@ def test_port_files_found():
                  *(f"gnnla_tpu_torch/scratch/{name}.py"
                    for name in SCRATCH),
                  *(f"gnnla_tpu_torch/ops/{name}.py" for name in KERNEL_OPS),
+                 "gnnla_tpu_torch/scripts/__init__.py",
+                 *(f"gnnla_tpu_torch/scripts/{name}.py" for name in SCRIPTS),
                  *(f"gnnla_tpu_torch/examples/{name}.py"
                    for name in EXAMPLES)):
         assert must in files
@@ -130,7 +135,9 @@ def test_import_pulls_in_no_jax():
             + ", ".join(f"gnnla_tpu_torch.scratch.{name}"
                         for name in SCRATCH) + ", "
             + ", ".join(f"gnnla_tpu_torch.ops.{name}"
-                        for name in KERNEL_OPS) + "; "
+                        for name in KERNEL_OPS) + ", "
+            + ", ".join(f"gnnla_tpu_torch.scripts.{name}"
+                        for name in SCRIPTS) + "; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -212,6 +219,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         run_sharded_hardware_check()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         dist_example.main()
+    from gnnla_tpu_torch.scripts import (grid_diffusion, reproduce_diffusion,
+                                         reproduce_jacobi,
+                                         reproduce_jacobi_stable,
+                                         smoother_twogrid)
+    for twin in (reproduce_jacobi, reproduce_jacobi_stable, smoother_twogrid,
+                 reproduce_diffusion, grid_diffusion):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            twin.main()
     # asked for explicitly, the CPU runs the plain versions
     assert laplacian_2d(4, device="cpu").device.type == "cpu"
 
@@ -271,10 +286,33 @@ def test_build_is_lazy():
             + ", ".join(f"gnnla_tpu_torch.scratch.{name}"
                         for name in SCRATCH) + ", "
             + ", ".join(f"gnnla_tpu_torch.ops.{name}"
-                        for name in KERNEL_OPS) + "; "
+                        for name in KERNEL_OPS) + ", "
+            + ", ".join(f"gnnla_tpu_torch.scripts.{name}"
+                        for name in SCRIPTS) + "; "
             "from gnnla_tpu_torch import _build; "
             "raise SystemExit(0 if _build._lib is None else 1)")
     env = dict(os.environ, PYTHONPATH=ROOT)
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_package_data_ships_every_kernel_source():
+    """A non-editable install carries every file the kernels build from:
+    each of `_build.SOURCES` and `_build.HEADERS` (which the build hashes)
+    and each csrc/*.cu(h) on disk matches a package-data glob."""
+    import fnmatch
+    import tomllib
+
+    from gnnla_tpu_torch import _build
+
+    with open(os.path.join(ROOT, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "gnnla_tpu_torch"]
+    csrc = os.path.join(ROOT, "gnnla_tpu_torch", "csrc")
+    names = set(_build.SOURCES) | set(_build.HEADERS) | {
+        f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh"))}
+    assert _build.HEADERS
+    for name in sorted(names):
+        assert os.path.exists(os.path.join(csrc, name)), name
+        assert any(fnmatch.fnmatch(f"csrc/{name}", g) for g in globs), name

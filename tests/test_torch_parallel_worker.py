@@ -433,6 +433,47 @@ def case_train(mesh, run_dir):
     return out
 
 
+# ------------------------------------------------------ suite "dryrun"
+def case_dryrun(mesh, run_dir):
+    import contextlib
+    import io
+
+    from gnnla_tpu_torch.parallel.dryrun import dryrun_multichip
+    S = mesh.size()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = dryrun_multichip(S)
+    out = {k: np.asarray(res[k]) for k in (
+        "loss", "reference_loss", "loss_rel_gap", "param_max_abs_gap",
+        "stencil_max_abs_err", "stream_max_abs_err",
+        "stream_vcycle_max_abs_err", "mesh", "line", "n_st", "h_tiles",
+        "k2_launches")}
+    out["printed"] = np.asarray(buf.getvalue())
+    out.update({f"param:{k}": v for k, v in res["params"].items()})
+    out.update({f"reference:{k}": v
+                for k, v in res["reference_params"].items()})
+    out["wrong_world"] = np.asarray(raised(lambda: dryrun_multichip(S + 1)))
+    return out
+
+
+def case_psum_replicated(mesh, run_dir):
+    """The gradient of a loss every rank computes from psum_replicated of
+    its rows' squares, gathered: the one-process gradient's rows."""
+    from gnnla_tpu_torch.parallel.collectives import (axis_group,
+                                                      axis_index,
+                                                      psum_replicated)
+    g = axis_group(mesh, "rows")
+    S, r = mesh.size(), axis_index(g)
+    v = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (8 * S, 3)).astype(np.float32))
+    v_l = v[r * 8:(r + 1) * 8].clone().requires_grad_(True)
+    norms = torch.sqrt(psum_replicated(torch.sum(v_l * v_l, dim=0), g))
+    loss = torch.amax(norms) ** (1.0 / 3.0)
+    loss.backward()
+    return {"loss": loss.detach().numpy(), "grad": v_l.grad.numpy(),
+            "v": v.numpy()}
+
+
 SUITES = {
     "core": [("matvec", case_matvec),
              ("jacobi_norm_power", case_jacobi_norm_power),
@@ -443,6 +484,8 @@ SUITES = {
                ("stream_vcycle", case_stream_vcycle),
                ("hardware_check", case_hardware_check)],
     "train": [("train", case_train)],
+    "dryrun": [("dryrun", case_dryrun),
+               ("psum_replicated", case_psum_replicated)],
 }
 
 
