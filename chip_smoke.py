@@ -10,8 +10,9 @@ Phases, one JSON line each on stdout:
                memory and spill lines; then kernel K5, the health probe
                (`utils/health.py::health_probe`, y = 2 x on one 8 x 128
                block): y == 2 bitwise, one launch; K5 bitwise its plain
-               version on random x, its flushed time, bound and
-               `torch.mul(x, 2)`'s time.
+               version on random x; its raw launch, its wrapper and
+               `torch.mul(x, 2)` timed in turns, flushed, beside each
+               kernel's profiler device time and the bound.
   3. setup   — the 1024^2 FD Laplacian, `setup_twogrid(theta=0.25, cljp,
                seed=0)`, `setup_with_dia(kernel=True)`, `setup_with_stream_p`;
                asserts A and Ac are on kernel K1 and P on kernel K2, and
@@ -307,19 +308,24 @@ points (proto_ellw.py's) and the k-NN-32 Laplacian of as many in RCM order
                     default 16,384 points, on the 1M Delaunay Laplacian
                     and on the k-NN-32 Laplacian: error against scipy
                     below 1e-5 of max|y|, K6 bitwise its plain version in
-                    the window path chosen from W (and in the other one
-                    where W fits a block's shared memory), exactly 22
-                    launches each; K, W, padding waste; K6's flushed time
-                    beside K2's and cuSPARSE's on the same matrix.
+                    the window path chosen from W, on x and on x with inf
+                    and NaN, exactly 22 launches each; bitwise too in the
+                    other path where W fits a block's shared memory and in
+                    the earlier full-slot body; K, W, mean slots read,
+                    padding and read waste; all of them timed flushed in
+                    turns with K2 and cuSPARSE on the same matrix; the
+                    bounds of the slots read and of the layout.
  43. scratch_gather — K7 and K8 (`csrc/gather_probe.cu`) through
                     `probe_dyngather` at its script's sizes: bitwise numpy
                     and the plain versions, 22 launches a probe, gathers
-                    per second; K8 against `torch.gather`, K7 against
-                    `torch.take` times vals (two calls); `probe_gather`'s
-                    five formulations at n = 1M (plain PyTorch).
+                    per second; K8 on its lane slabs, in turns with its
+                    earlier design (bitwise too) and `torch.gather`, K7
+                    against `torch.take` times vals (two calls);
+                    `probe_gather`'s five formulations at n = 1M (plain
+                    PyTorch).
  44. scratch_stream_probe — `probe_stream`: 2 x 1024 rows of 5 random
                     edges on K6 (`from_slots`) and K2 against the dense
-                    A @ x (below 1e-5), K6 bitwise its plain version.
+                    A @ x (below 1e-5), then K6's row as in phase 42.
  45. scratch_ablate — K9 (`csrc/csr_ablate.cu`) through `ablate_stream` on
                     the scaled, RCM-ordered 1M Delaunay Laplacian: each
                     variant bitwise its plain version, `full` bitwise K2;
@@ -449,8 +455,8 @@ from gnnla_tpu_torch.problems import laplacian_2d
 from gnnla_tpu_torch.problems.small_band import small_band_matrix_host
 from gnnla_tpu_torch.ops.ellw_spmv import ELLW_SMEM_BYTES, ellw_cuda
 from gnnla_tpu_torch.ops.gather_probe import (GatherProbe, axis0_cuda,
-                                              axis0_plain, axis1_cuda,
-                                              axis1_plain)
+                                              axis0_path, axis0_plain,
+                                              axis1_cuda, axis1_plain)
 from gnnla_tpu_torch.ops.stream_ablate import (VARIANTS, StreamAblation,
                                                variant_bytes)
 from gnnla_tpu_torch.scratch import (ablate_stream, bench_stream,
@@ -517,6 +523,10 @@ SCRATCH_N = 1 << 20
 SCRATCH_ITERS = 20  # the twins' timed launches (each run: 1 + 1 + 20)
 ABLATE_ITERS = 100  # per variant, warm and flushed: 1 + 2 * (1 + 100)
 BLOCK_SMEM_MAX = 227 * 1024  # shared memory a block can opt in to
+# the earlier K6 and K8 designs staged a window in shared memory up to the
+# 48 KB a block has without opting in, else read x (win) through the
+# read-only cache: the path their timing takes
+EARLIER_SMEM_BYTES = 48 * 1024
 BSR_BLOCK = 128
 BSR_MAX_BLOCKS = 1 << 22  # to_bsr's default
 PCG_ITERS = 30
@@ -640,6 +650,29 @@ def cuda_ms_cold(fn, iters: int, flush: torch.Tensor) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def cold_ms_turns(fns: dict, iters: int, flush: torch.Tensor) -> dict:
+    """Median ms of one call of each fn, timed as cuda_ms_cold times one
+    but behind two flushes, the fns taken in turns in every round, so that
+    all meet the card in the same state. The second flush gives the host
+    time to enqueue the call before the card reaches it, and the median
+    keeps a round that the host still held up from moving the result."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(iters):
+        for key, fn in fns.items():
+            flush.sum()
+            flush.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[key].append(start.elapsed_time(end))
+    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def bound(bytes_moved: float, flops: float):
@@ -2550,10 +2583,12 @@ def eigen_phase(dev, smi) -> None:
 
 def health_row(lib, launches: int, flush: torch.Tensor) -> dict:
     """K5's row of the kernels line: y = 2 x on one (8, 128) f32 block,
-    bitwise its plain version on random x; `ms` is the raw launch's, as
-    for K1-K4, and `wrapper_ms` the wrapper's (checks, allocation, launch).
-    Bound = 8 KB moved (4 KB read, 4 KB written) at the memory rate, so
-    the launch sets the time."""
+    bitwise its plain version on random x. The raw launch (`ms`, as for
+    K1-K4), the wrapper (checks, allocation, launch: `wrapper_ms`) and
+    `torch.mul(x, 2)` are timed in turns, L2 flushed; beside them each
+    kernel's device time from the profiler (`warm_and_device_ms`), which
+    no launch latency enters. Bound = 8 KB moved (4 KB read, 4 KB written) at the memory
+    rate, so the launch sets the time."""
     x = torch.from_numpy(np.random.default_rng(53).standard_normal(
         HEALTH_SHAPE).astype(np.float32)).to(flush.device)
     y, want = health_cuda(x), health_plain(x)
@@ -2565,15 +2600,22 @@ def health_row(lib, launches: int, flush: torch.Tensor) -> dict:
     def raw():
         _build.check(lib.health_f32(x.data_ptr(), y.data_ptr(), x.numel(),
                                     stream), "K5 raw")
+
+    def mul():
+        return torch.mul(x, 2)
+    t = cold_ms_turns({"raw": raw, "wrapper": lambda: health_cuda(x),
+                       "library": mul}, 50, flush)
     bound_ms, bound_by = bound(2 * x.numel() * 4, x.numel())
     return dict(name="health[8x128]", route="cuda", source=K5_ROW[0],
                 replaces=K5_ROW[1], launches=launches,
                 max_abs_err=float((y - want).abs().max()),
-                ms=cuda_ms_cold(raw, 20, flush),
+                ms=t["raw"],
                 plain_ms=cuda_ms_cold(lambda: health_plain(x), 20, flush),
                 bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=cuda_ms_cold(lambda: torch.mul(x, 2), 20, flush),
-                wrapper_ms=cuda_ms_cold(lambda: health_cuda(x), 20, flush))
+                library_ms=t["library"], wrapper_ms=t["wrapper"],
+                device_ms=warm_and_device_ms(raw)["device_ms_per_launch"],
+                library_device_ms=warm_and_device_ms(mul)[
+                    "device_ms_per_launch"])
 
 
 def peak_above(fn) -> int:
@@ -3179,52 +3221,86 @@ def scratch_fixtures(smi) -> dict:
     return dict(delaunay=lap, rng=rng, knn=knn)
 
 
-def k2_beside(A_host, x, lib, flush) -> tuple:
-    """(K2's flushed ms, cuSPARSE's flushed ms) on the CSR A_host and x:
-    the yardsticks of a K6 row."""
-    k2 = CsrSpMV(A_host, device=x.device)
-    raw, _, _ = csr_raw(lib, k2, x)
-    mat = csr_tensor(k2)
-    compare(mat @ x, k2(x), "cuSPARSE beside K6")
-    return cuda_ms_cold(raw, 20, flush), cuda_ms_cold(lambda: mat @ x, 20,
-                                                      flush)
+def nonfinite_x(x: torch.Tensor, first: np.ndarray, seed: int
+                ) -> torch.Tensor:
+    """x with +inf, -inf and NaN each at 5 rows' first columns (which
+    every padded slot of those rows reads) and at 5 other places."""
+    out = x.cpu().numpy().copy()
+    gen = np.random.default_rng(seed)
+    for value in (np.inf, -np.inf, np.nan):
+        out[first[gen.integers(0, first.size, 5)]] = value
+        out[gen.integers(0, out.size, 5)] = value
+    return torch.from_numpy(out).to(x.device)
 
 
-def ellw_row(name: str, res: dict, A_host, lib, flush) -> dict:
-    """K6's row: the twin's run `res` on the CSR A_host. K6 (raw, not
-    counted) bitwise its plain version in its path and, where W fits a
-    block's shared memory, in the other; its flushed time beside K2's and
-    cuSPARSE's; the bound of the layout (every stored slot: the padding is
-    the layout's cost) and the nonzeros' floor."""
-    op, x = res["op"], res["x"]
+def same_nonfinite(got: torch.Tensor, want: torch.Tensor, what) -> None:
+    """got has want's NaNs where want has them and want's values (inf
+    included) everywhere else."""
+    nan = torch.isnan(want)
+    require(bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]), what)
+
+
+def ellw_row(name: str, op, x, first: np.ndarray, k2, lib, flush,
+             rel_err: float) -> dict:
+    """K6's row on the layout `op`, whose twin's run made its launches, and
+    x: the kernel (raw, uncounted) bitwise its plain version, on x and on
+    x with inf and NaN; in its other window path where W fits a block and
+    in the earlier full-slot body, each bitwise too; all of them, K2 on the
+    same CSR `k2` and cuSPARSE timed in turns, L2 flushed. The bound is
+    that of the slots the extents read; the whole layout's and the
+    nonzeros' are beside it."""
     require(op.launches == 2 + SCRATCH_ITERS, (name, op.launches))
     want = op.plain(x)
     got = op.raw(x)[:op.n]
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"K6[{name}] is not its plain version")
+    x_bad = nonfinite_x(x, first, 11)
+    same_nonfinite(op.raw(x_bad)[:op.n], op.plain(x_bad),
+                   f"K6[{name}] on x with inf and NaN")
     shared = op.path == "shared"
-    other_ms = None
+
+    def launch(on_shared: bool, seg=None):
+        return lambda: ellw_cuda(op.idx, op.val, op.start, x, op.W,
+                                 on_shared, seg)
+    fns = {"kernel": lambda: op.raw(x),
+           "earlier": launch(op.W * 4 <= EARLIER_SMEM_BYTES)}
     if op.W * 4 <= BLOCK_SMEM_MAX:
-        def other():
-            return ellw_cuda(op.idx, op.val, op.start, x, op.W, not shared)
-        require(torch.equal(other()[:op.n], want),
-                f"K6[{name}] in its other window path")
-        other_ms = cuda_ms_cold(other, 20, flush)
-    k2_ms, lib_ms = k2_beside(A_host, x, lib, flush)
+        fns["other_path"] = launch(not shared, op.seg)
+    for key, fn in fns.items():
+        require(torch.equal(fn()[:op.n], want), f"K6[{name}] {key}")
+    raw_k2, _, _ = csr_raw(lib, k2, x)
+    mat = csr_tensor(k2)
+    compare(mat @ x, want, f"cuSPARSE beside K6[{name}]")
+    fns.update(k2=raw_k2, library=lambda: mat @ x)
+    ms = cold_ms_turns(fns, 20, flush)
+    xy = op.n * 4 + op.n_tiles * 1024 * 4 + op.start.numel() * 4
     slots = op.idx.numel()
-    bound_ms, bound_by = bound(slots * 8 + op.start.numel() * 4 + op.n * 4
-                               + op.n_tiles * 1024 * 4, 2 * slots)
+    read = 1024 * op.slots_read
+    bound_ms, bound_by = bound(read * 8 + xy + op.seg.numel() * 4, 2 * read)
     return dict(
         name=f"ellw_spmv[{name}]", route="cuda", source=K6_ROW[0],
         replaces=K6_ROW[1], launches=op.launches,
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms_cold(lambda: op.raw(x), 20, flush),
-        plain_ms=cuda_ms_cold(lambda: op.plain(x), 5, flush),
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-        path=op.path, other_path_ms=other_ms, k2_ms=k2_ms, K=op.K, W=op.W,
-        tiles=op.n_tiles, nnz=op.nnz, padding_waste=op.padding_waste,
+        ms=ms["kernel"], plain_ms=cuda_ms_cold(lambda: op.plain(x), 5, flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=ms["library"],
+        earlier_ms=ms["earlier"],
+        other_path_ms=ms.get("other_path"), k2_ms=ms["k2"], path=op.path,
+        K=op.K, W=op.W, tiles=op.n_tiles, nnz=op.nnz,
+        mean_slots_read=op.slots_read / op.n_tiles,
+        padding_waste=op.padding_waste, read_waste=op.read_waste,
+        layout_bound_ms=bound(slots * 8 + xy, 2 * slots)[0],
         nnz_floor_ms=bound(op.nnz * 8 + 2 * op.n * 4, 2 * op.nnz)[0],
-        rel_err_vs_scipy=res["rel_err"])
+        rel_err_vs_scipy=rel_err)
+
+
+def ellw_on(name: str, res: dict, A_host, lib, flush) -> dict:
+    """K6's row for the twin's run `res` on the scipy CSR A_host, K2 on
+    the same CSR beside it."""
+    k2 = CsrSpMV(A_host, device=res["x"].device)
+    return ellw_row(name, res["op"], res["x"],
+                    A_host.indices[A_host.indptr[:-1]], k2, lib, flush,
+                    res["rel_err"])
 
 
 def scratch_ellw(fx, dev, lib, flush, smi) -> list:
@@ -3235,22 +3311,23 @@ def scratch_ellw(fx, dev, lib, flush, smi) -> list:
     rng = np.random.default_rng(7)
     small = proto_ellw.rcm_ordered(proto_ellw.delaunay_laplacian(
         proto_ellw.N_DEFAULT, rng))
-    rows.append(ellw_row("delaunay_16K", res, small, lib, flush))
+    rows.append(ellw_on("delaunay_16K", res, small, lib, flush))
     d_rcm = proto_ellw.rcm_ordered(fx["delaunay"])
     x = fx["rng"].standard_normal(SCRATCH_N).astype(np.float32)
     res = proto_ellw.run(d_rcm, x, dev)
-    rows.append(ellw_row("delaunay_1M", res, d_rcm, lib, flush))
+    rows.append(ellw_on("delaunay_1M", res, d_rcm, lib, flush))
     x = np.random.default_rng(0).standard_normal(SCRATCH_N).astype(
         np.float32)
     res = proto_ellw.run(fx["knn"], x, dev)
-    rows.append(ellw_row("knn32_1M", res, fx["knn"], lib, flush))
+    rows.append(ellw_on("knn32_1M", res, fx["knn"], lib, flush))
     emit(dict(phase="scratch_ellw", seconds=time.perf_counter() - t0,
               smem_budget_bytes=ELLW_SMEM_BYTES,
-              rows=[{k: r[k] for k in ("name", "path", "K", "W", "tiles",
-                                       "nnz", "padding_waste", "ms",
-                                       "other_path_ms", "k2_ms",
-                                       "library_ms", "bound_ms",
-                                       "rel_err_vs_scipy")} for r in rows],
+              rows=[{k: r[k] for k in (
+                  "name", "path", "K", "W", "tiles", "nnz", "mean_slots_read",
+                  "padding_waste", "read_waste", "ms", "earlier_ms",
+                  "other_path_ms", "k2_ms", "library_ms", "bound_ms",
+                  "layout_bound_ms", "rel_err_vs_scipy")}
+                  for r in rows],
               nvidia_smi=smi))
     return rows
 
@@ -3275,19 +3352,32 @@ def gather_row(kind: str, res: dict, launches: int, flush) -> dict:
     else:
         raw, plain = (lambda: axis0_cuda(*args)), (lambda: axis0_plain(*args))
         win, idx = args
-        name, (src, rep) = f"gather_axis0[R={win.shape[0]}]", K8_ROW
+        R = win.shape[0]
+        name, (src, rep) = f"gather_axis0[R={R}]", K8_ROW
         idx2 = idx.long().view(-1, 128)
         require(torch.equal(torch.gather(win, 0, idx2).view(idx.shape),
                             plain()), "torch.gather differs from K8's plain")
-        lib_ms = cuda_ms_cold(lambda: torch.gather(win, 0, idx2), 20, flush)
-        extra = dict(path=res["path"])
+        # the earlier design, in the path it took, bitwise too; in turns
+        # with the kernel and torch.gather
+        earlier_path = ("window" if R * 128 * 4 <= EARLIER_SMEM_BYTES
+                        else "read-only cache")
+        require(res["path"] == axis0_path(R) == "slab", res["path"])
+        require(torch.equal(axis0_cuda(*args, path=earlier_path), plain()),
+                f"{name}: the earlier design is not the plain version")
+        fns = {"kernel": raw,
+               "earlier": lambda: axis0_cuda(*args, path=earlier_path),
+               "library": lambda: torch.gather(win, 0, idx2)}
+        t = cold_ms_turns(fns, 20, flush)
+        lib_ms = t["library"]
+        extra = dict(path=res["path"], earlier_ms=t["earlier"],
+                     earlier_path=earlier_path)
         bytes_moved = 8 * idx.numel() + win.numel() * 4
         flops = 0
     got, want = raw(), plain()
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"{name} is not its plain version")
     bound_ms, bound_by = bound(bytes_moved, flops)
-    ms = cuda_ms_cold(raw, 20, flush)
+    ms = cuda_ms_cold(raw, 20, flush) if kind == "axis1" else t["kernel"]
     return dict(name=name, route="cuda", source=src, replaces=rep,
                 launches=launches, max_abs_err=float((got - want).abs().max()),
                 ms=ms, plain_ms=cuda_ms_cold(plain, 5, flush),
@@ -3317,9 +3407,9 @@ def scratch_gather(dev, flush, smi) -> list:
     forms = probe_gather.run(SCRATCH_N, dev)
     emit(dict(phase="scratch_gather", seconds=time.perf_counter() - t0,
               launches=probe.launches,
-              probes=[{k: r[k] for k in ("name", "ms", "per_s_flushed",
-                                         "per_s_warm", "bound_ms",
-                                         "library_ms")} for r in rows],
+              probes=[{k: r.get(k) for k in (
+                  "name", "path", "ms", "earlier_ms", "per_s_flushed",
+                  "per_s_warm", "bound_ms", "library_ms")} for r in rows],
               probe_gather=forms, nvidia_smi=smi))
     return rows
 
@@ -3330,26 +3420,10 @@ def scratch_stream_probe(dev, lib, flush, smi) -> dict:
     ell, csr, x = out["ell"], out["csr"], out["x"]
     require(ell.launches == csr.launches == 2 + SCRATCH_ITERS,
             (ell.launches, csr.launches))
-    want = ell.plain(x)
-    got = ell.raw(x)[:ell.n]
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "K6[stream_probe] is not its plain")
-    raw_k2, _, _ = csr_raw(lib, csr, x)
-    mat = csr_tensor(csr)
-    bound_ms, bound_by = bound(ell.idx.numel() * 8 + ell.start.numel() * 4
-                               + ell.n * 4 + ell.n_tiles * 4096,
-                               2 * ell.idx.numel())
-    row = dict(name="ellw_spmv[stream_probe]", route="cuda",
-               source=K6_ROW[0], replaces=K6_ROW[1], launches=ell.launches,
-               max_abs_err=float((got - want).abs().max()),
-               ms=cuda_ms_cold(lambda: ell.raw(x), 20, flush),
-               plain_ms=cuda_ms_cold(lambda: ell.plain(x), 5, flush),
-               bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=cuda_ms_cold(lambda: mat @ x, 20, flush),
-               path=ell.path, K=ell.K, W=ell.W, tiles=ell.n_tiles,
-               k2_ms=cuda_ms_cold(raw_k2, 20, flush),
-               replaces_also="scratch/probe_stream.py:184 (main; kernel2 "
-               ":106): the same function, no kernel of its own")
+    row = ellw_row("stream_probe", ell, x, probe_stream.fixture()[0][:, 0],
+                   csr, lib, flush, out["K6"]["rel_err"])
+    row["replaces_also"] = ("scratch/probe_stream.py:184 (main; kernel2 "
+                            ":106): the same function, no kernel of its own")
     emit(dict(phase="scratch_stream_probe", K=ell.K, W=ell.W,
               rel_err_k6=out["K6"]["rel_err"], rel_err_k2=out["K2"]["rel_err"],
               k2_launches=csr.launches, row=row, nvidia_smi=smi))

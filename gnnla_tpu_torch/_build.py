@@ -123,6 +123,9 @@ def load(force: bool = False) -> ctypes.CDLL:
     lib.health_f32.argtypes = [vp, vp, ctypes.c_int64, vp]
     lib.ellw_spmv_f32.restype = ci
     lib.ellw_spmv_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp, ci, vp, vp]
+    lib.ellw_spmv_trim_f32.restype = ci
+    lib.ellw_spmv_trim_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp,
+                                       ci, vp, vp]
     lib.gather_axis1_f32.restype = ci
     lib.gather_axis1_f32.argtypes = [vp, ci, vp, vp, vp, vp,
                                      ctypes.c_longlong, vp]

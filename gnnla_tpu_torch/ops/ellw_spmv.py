@@ -11,12 +11,17 @@ value of 0 and the row's first column.
                         bitwise proto_ellw.py's `build_ellw`.
   * `from_slots`      — the layout of per-row slot arrays cols, vals
                         [n, K] (duplicate columns stay separate slots).
+  * `slot_extents`    — for each tile, the slots K6 must read (the rest
+                        are padding) and the window words they touch: the
+                        port's own data, built once.
   * `ellw_spmv_plain` — the plain PyTorch version.
-  * `ellw_cuda`       — the raw launch of K6 (`csrc/ellw_spmv.cu`).
-  * `EllwSpMV`        — the wrapper: the layout on one device, `matvec`
-                        (K6 on a CUDA tensor, counted in `launches`; the
-                        plain version on a CPU tensor), `plain()`, and the
-                        window path chosen once from W.
+  * `ellw_cuda`       — the raw launch of K6 (`csrc/ellw_spmv.cu`): on the
+                        extents, or without them the earlier full-slot
+                        body, which only a timing launches.
+  * `EllwSpMV`        — the wrapper: the layout and its extents on one
+                        device, `matvec` (K6 on a CUDA tensor, counted in
+                        `launches`; the plain version on a CPU tensor),
+                        `plain()`, and the window path chosen once from W.
 """
 
 from __future__ import annotations
@@ -27,11 +32,12 @@ import torch
 from gnnla_tpu_torch import _build
 
 TILE = 1024  # rows per tile (8 lane-groups of 128)
-# K6 stages a tile's window in shared memory when it takes at most this
-# many bytes: the 48 KB a block may use without opting in, which leaves
-# room for two 1024-thread blocks on an SM; a wider window is read
-# through the read-only cache by the same kernel
-ELLW_SMEM_BYTES = 48 * 1024
+# K6 stages a tile's window in shared memory when W words take at most
+# this many bytes: the most that still lets two 1024-thread blocks share
+# an SM (2 x (window + 16-byte barrier + 1 KB the card reserves a block)
+# within its 228 KB), rounded down to whole 128-word chunks; a wider
+# window is read through the read-only cache by the same kernel
+ELLW_SMEM_BYTES = 225 * 512
 
 
 def _pack(indptr: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -105,6 +111,27 @@ def from_slots(cols, vals) -> dict:
                  cols.reshape(-1), vals.reshape(-1), n)
 
 
+def slot_extents(idx: np.ndarray, val: np.ndarray) -> np.ndarray:
+    """int32 [n_tiles, 4]: for each tile, T, lo, hi, 0.
+
+    T is the smallest k >= 1 such that every slot k..K-1 of the tile is
+    padding: value bits exactly +0.0 and the column of the row's slot 0
+    (an explicit zero on another column is not padding). K6 sums slots
+    0..T-1 and, if T < K, the one term 0 * x[slot 0's column], which is
+    the sum over all K slots bit for bit. [lo, hi) holds every window
+    word the tile reads, lo rounded down and hi up to a multiple of 4."""
+    n_tiles, k8, _ = idx.shape
+    i = np.asarray(idx).reshape(n_tiles, k8 // 8, TILE)
+    pad = ((np.ascontiguousarray(val, np.float32).view(np.uint32)
+            .reshape(i.shape) == 0) & (i == i[:, :1, :])).all(axis=2)
+    trailing = np.cumprod(pad[:, ::-1], axis=1).sum(axis=1)
+    out = np.zeros((n_tiles, 4), np.int32)
+    out[:, 0] = np.maximum(k8 // 8 - trailing, 1)
+    out[:, 1] = i.min(axis=(1, 2)) // 4 * 4
+    out[:, 2] = -(-(i.max(axis=(1, 2)) + 1) // 4) * 4
+    return out
+
+
 def ellw_spmv_plain(idx: torch.Tensor, val: torch.Tensor,
                     start: torch.Tensor, x: torch.Tensor,
                     W: int) -> torch.Tensor:
@@ -130,11 +157,15 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def ellw_cuda(idx: torch.Tensor, val: torch.Tensor, start: torch.Tensor,
-              x: torch.Tensor, W: int, shared: bool) -> torch.Tensor:
+              x: torch.Tensor, W: int, shared: bool,
+              seg: torch.Tensor = None) -> torch.Tensor:
     """Launch K6: y [n_tiles * 1024] = A x for the layout idx int32, val
     f32 [n_tiles, 8K, 128], start int32 [n_tiles] and x f32 [n_x], all
     contiguous on one CUDA device; `shared` stages each window in shared
-    memory, else the kernel reads x through the read-only cache."""
+    memory, else the kernel reads x through the read-only cache. With
+    `seg`, the `slot_extents` of the layout (int32 on the same device),
+    each tile reads only its slots and its part of the window; without it
+    the earlier body walks every slot."""
     _require(x.device.type == "cuda", f"x lies on {x.device}, not CUDA")
     _require(all(t.device == x.device for t in (idx, val, start)),
              "idx, val, start and x must share one device")
@@ -151,14 +182,28 @@ def ellw_cuda(idx: torch.Tensor, val: torch.Tensor, start: torch.Tensor,
              "multiple of 128")
     _require(all(t.is_contiguous() for t in (idx, val, start, x)),
              "inputs must be contiguous")
+    if seg is not None:
+        _require(seg.device == x.device and seg.dtype == torch.int32
+                 and seg.is_contiguous()
+                 and tuple(seg.shape) == (n_tiles, 4),
+                 f"seg {tuple(seg.shape)} {seg.dtype} is not the extents "
+                 f"of {n_tiles} tiles")
     y = x.new_empty(n_tiles * TILE)
+    K = idx.shape[1] // 8
     lib = _build.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.check(lib.ellw_spmv_f32(
-            idx.data_ptr(), val.data_ptr(), start.data_ptr(), n_tiles,
-            idx.shape[1] // 8, W, int(shared), x.data_ptr(), x.shape[0],
-            y.data_ptr(), stream), "ellw_spmv_f32")
+        if seg is None:
+            _build.check(lib.ellw_spmv_f32(
+                idx.data_ptr(), val.data_ptr(), start.data_ptr(), n_tiles,
+                K, W, int(shared), x.data_ptr(), x.shape[0], y.data_ptr(),
+                stream), "ellw_spmv_f32")
+        else:
+            _build.check(lib.ellw_spmv_trim_f32(
+                idx.data_ptr(), val.data_ptr(), start.data_ptr(),
+                seg.data_ptr(), n_tiles, K, W, int(shared), x.data_ptr(),
+                x.shape[0], y.data_ptr(), stream),
+                "ellw_spmv_trim_f32")
     return y
 
 
@@ -167,7 +212,8 @@ class EllwSpMV:
     (a dict), held on one device.
 
     `path` is "shared" when a window (W * 4 bytes) fits ELLW_SMEM_BYTES,
-    else "read-only cache": chosen here, once, from W.
+    else "read-only cache": chosen here, once, from W. `seg` holds the
+    layout's `slot_extents`, built here.
     `launches` counts K6 launches; the CPU path runs the plain version
     and counts nothing."""
 
@@ -186,6 +232,9 @@ class EllwSpMV:
 
         self.idx, self.val = put(meta["idx"]), put(meta["val"])
         self.start = put(meta["start"])
+        seg = slot_extents(meta["idx"], meta["val"])
+        self.seg = put(seg)
+        self.slots_read = int(seg[:, 0].sum())  # slots a row, all tiles
         self.path = ("shared" if self.W * 4 <= ELLW_SMEM_BYTES
                      else "read-only cache")
         self.launches = 0
@@ -195,6 +244,12 @@ class EllwSpMV:
         """Slots stored per nonzero: n_tiles * 1024 * K / nnz."""
         return self.n_tiles * TILE * self.K / self.nnz
 
+    @property
+    def read_waste(self) -> float:
+        """Slots K6 reads per nonzero: 1024 * sum of the extents' T /
+        nnz."""
+        return TILE * self.slots_read / self.nnz
+
     def plain(self, x: torch.Tensor) -> torch.Tensor:
         """The plain version on this layout, y [n]."""
         return ellw_spmv_plain(self.idx, self.val, self.start, x,
@@ -203,7 +258,7 @@ class EllwSpMV:
     def raw(self, x: torch.Tensor) -> torch.Tensor:
         """K6's launch on x, uncounted: y [n_tiles * 1024]."""
         return ellw_cuda(self.idx, self.val, self.start, x, self.W,
-                         self.path == "shared")
+                         self.path == "shared", self.seg)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim != 1 or x.shape[0] != self.n:

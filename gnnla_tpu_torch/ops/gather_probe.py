@@ -10,8 +10,10 @@ a kernel (`tpu.dynamic_gather`) while the general-graph SpMV was designed.
 `axis1_plain`, `axis0_plain` are the plain PyTorch versions; `axis1_cuda`,
 `axis0_cuda` the raw launches (`csrc/gather_probe.cu`); `GatherProbe` the
 wrapper that picks one or the other by the tensors' device and counts the
-launches. K8 stages its window in shared memory when it takes at most
-GATHER_SMEM_BYTES, else reads it through the read-only cache.
+launches. K8 gathers from lane slabs (each block stages the 32 columns of
+win its lanes read) while a slab takes at most GATHER_SLAB_BYTES, else
+reads win through the read-only cache; its earlier design, the whole
+window in shared memory, stays callable by the raw launch for comparison.
 """
 
 from __future__ import annotations
@@ -21,11 +23,15 @@ import torch
 from gnnla_tpu_torch import _build
 
 LANES = 128
-# K8's window goes to shared memory up to this many bytes (K7's always
-# does: 128 * n_chunks * 4 bytes, 16 KB at the probe's widest): the 48 KB
-# a block may use without opting in. At R = 512 the window is 256 KB,
-# more than the 227 KB a block can have at all.
-GATHER_SMEM_BYTES = 48 * 1024
+SLAB_LANES = 32  # the lanes of one K8 block: a warp's width
+# K8's lane slab (R * 32 * 4 bytes) goes to shared memory up to this many
+# bytes, the most a block can opt in to: R <= 1,816 rows. K7's window
+# always does (128 * n_chunks * 4 bytes, 16 KB at the probe's widest).
+GATHER_SLAB_BYTES = 227 * 1024
+# K8's paths and the mode numbers csrc/gather_probe.cu takes for them;
+# "window" (all of win in shared memory) is the earlier design, which no
+# wrapper picks
+AXIS0_MODES = {"read-only cache": 0, "window": 1, "slab": 2}
 
 
 def axis1_plain(win: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -78,24 +84,32 @@ def axis1_cuda(win: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
     return out
 
 
-def axis0_shared(R: int) -> bool:
-    """Whether K8 stages a window of R rows in shared memory."""
-    return R * LANES * 4 <= GATHER_SMEM_BYTES
+def axis0_path(R: int) -> str:
+    """K8's path for a window of R rows: "slab" while a lane slab fits a
+    block's shared memory, else "read-only cache"."""
+    return ("slab" if R * SLAB_LANES * 4 <= GATHER_SLAB_BYTES
+            else "read-only cache")
 
 
-def axis0_cuda(win: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Launch K8 (every idx must lie in [0, R))."""
+def axis0_cuda(win: torch.Tensor, idx: torch.Tensor,
+               path: str = None) -> torch.Tensor:
+    """Launch K8 (every idx must lie in [0, R)) on `path`, by default
+    `axis0_path(R)`; "window" launches the earlier design (R * 512 bytes
+    of shared memory)."""
     _check((win, idx), idx.shape, "probe_axis0")
     _require(win.ndim == 2 and win.shape[1] == LANES
              and win.dtype == torch.float32 and idx.dtype == torch.int32,
              "probe_axis0: win f32 [R, 128] and idx int32 [..., 128]")
+    path = axis0_path(win.shape[0]) if path is None else path
+    _require(path in AXIS0_MODES, f"probe_axis0: path {path!r} is not one "
+             f"of {sorted(AXIS0_MODES)}")
     out = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
     lib = _build.load()
     with torch.cuda.device(win.device):
         stream = torch.cuda.current_stream(win.device).cuda_stream
         _build.check(lib.gather_axis0_f32(
             win.data_ptr(), win.shape[0], idx.data_ptr(), out.data_ptr(),
-            out.numel(), int(axis0_shared(win.shape[0])), stream),
+            out.numel(), AXIS0_MODES[path], stream),
             "gather_axis0_f32")
     return out
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gnnla_tpu_torch.ops.gather_probe import GatherProbe, axis0_shared
+from gnnla_tpu_torch.ops.gather_probe import GatherProbe, axis0_path
 from gnnla_tpu_torch.scratch._common import (device, ms_per_call, parser,
                                              say, where)
 
@@ -77,7 +77,7 @@ def probe_axis0(dev: torch.device, R: int = 512, n_blocks: int = 64,
     expect = win[idx, np.arange(128)[None, None, :]]
     err = float(np.abs(out.cpu().numpy() - expect).max())
     ms = ms_per_call(lambda: probe.axis0(*args), dev, n_iters)
-    path = "shared" if axis0_shared(R) else "read-only cache"
+    path = axis0_path(R)
     res = _report(f"axis0 R={R} ({path})", err, out, ms, dev, verbose,
                   "gathers")
     return dict(res, args=args, out=out, path=path)

@@ -1260,11 +1260,25 @@ def _delaunay_rcm(n, seed=7):
 
 def _wide_slots(n, reach, seed):
     """Per-row slots (6 a row, duplicates allowed) within `reach` of the
-    diagonal: a window wider than K6's default shared-memory budget."""
+    diagonal: a window wider than K6's shared-memory budget."""
     gen = np.random.default_rng(seed)
     rows = np.arange(n)[:, None]
     cols = np.clip(rows + gen.integers(-reach, reach + 1, (n, 6)), 0, n - 1)
     return cols, gen.standard_normal((n, 6)).astype(np.float32)
+
+
+def _ellw_case(case):
+    from gnnla_tpu_torch.ops.ellw_spmv import (ELLW_SMEM_BYTES, build_ellw,
+                                               from_slots)
+    if case == "delaunay":
+        return build_ellw(_delaunay_rcm(3000))
+    if case == "delaunay_16K":
+        return build_ellw(_delaunay_rcm(16384))
+    if case == "delaunay_200K":  # 196 tiles: more than the card's SMs
+        return build_ellw(_delaunay_rcm(200_000))
+    meta = from_slots(*_wide_slots(40_000, 15_000, 3))
+    assert meta["W"] * 4 > ELLW_SMEM_BYTES
+    return meta
 
 
 @pytest.mark.parametrize("case", ["delaunay", "slots_wide"])
@@ -1272,25 +1286,52 @@ def _wide_slots(n, reach, seed):
 def test_ellw_kernel_is_its_plain_version(cuda, case, path):
     """K6 bitwise its plain version in both window paths, on the
     proto_ellw fixture (3,000 points) and on slots with duplicate columns
-    whose window (W * 4 > 48 KB) needs the opt-in shared memory; the
+    whose window (W * 4 > ELLW_SMEM_BYTES) needs more than two blocks an
+    SM can share; on the extents and in the earlier full-slot body; the
     wrapper launches the path W selects."""
-    from gnnla_tpu_torch.ops.ellw_spmv import (ELLW_SMEM_BYTES, EllwSpMV,
-                                               build_ellw, ellw_cuda,
-                                               from_slots)
-    if case == "delaunay":
-        meta = build_ellw(_delaunay_rcm(3000))
-    else:
-        meta = from_slots(*_wide_slots(20_000, 7000, 3))
-        assert meta["W"] * 4 > ELLW_SMEM_BYTES
+    from gnnla_tpu_torch.ops.ellw_spmv import EllwSpMV, ellw_cuda
+    meta = _ellw_case(case)
     op = EllwSpMV(meta, device=cuda)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         meta["n"]).astype(np.float32)).to(cuda)
     want = op.plain(x)
-    y = ellw_cuda(op.idx, op.val, op.start, x, op.W, path == "shared")
-    torch.cuda.synchronize()
-    assert torch.equal(y[:op.n], want)
+    shared = path == "shared"
+    for y in (ellw_cuda(op.idx, op.val, op.start, x, op.W, shared, op.seg),
+              ellw_cuda(op.idx, op.val, op.start, x, op.W, shared)):
+        torch.cuda.synchronize()
+        assert torch.equal(y[:op.n], want)
     if op.path == path:
         assert torch.equal(op.matvec(x), want) and op.launches == 1
+
+
+@pytest.mark.parametrize("case", ["delaunay", "delaunay_16K", "slots_wide",
+                                  "delaunay_200K"])
+def test_ellw_kernel_keeps_the_nonfinite_pattern(cuda, case):
+    """K6 on its extents, on x with +inf, -inf and NaN at rows' first
+    columns (which every skipped slot reads) and elsewhere: bitwise the
+    plain version where it is not NaN, NaN where it is, in both paths, on
+    grids of fewer and of more tiles than the card has SMs."""
+    from gnnla_tpu_torch.ops.ellw_spmv import EllwSpMV, ellw_cuda
+    meta = _ellw_case(case)
+    op = EllwSpMV(meta, device=cuda)
+    x = np.random.default_rng(5).standard_normal(meta["n"]).astype(
+        np.float32)
+    first = (meta["idx"].reshape(op.n_tiles, op.K, 1024)[:, 0].reshape(-1)
+             + np.repeat(meta["start"], 1024))[:meta["n"]]
+    gen = np.random.default_rng(6)
+    for value in (np.inf, -np.inf, np.nan):
+        x[first[gen.integers(0, meta["n"], 5)]] = value
+        x[gen.integers(0, meta["n"], 5)] = value
+    xt = torch.from_numpy(x).to(cuda)
+    want = op.plain(xt)
+    nan = torch.isnan(want)
+    assert bool(nan.any())
+    for shared in ((True, False) if op.W * 4 <= 227 * 1024 else (False,)):
+        y = ellw_cuda(op.idx, op.val, op.start, xt, op.W, shared,
+                      op.seg)[:op.n]
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(y), nan)
+        assert torch.equal(y[~nan], want[~nan])
 
 
 @pytest.mark.parametrize("n_chunks", [8, 16, 32])
@@ -1311,13 +1352,14 @@ def test_gather_axis1_kernel_is_exact(cuda, n_chunks):
 
 @pytest.mark.parametrize("R", [8, 512])
 def test_gather_axis0_kernel_is_exact(cuda, R):
-    """K8 bitwise its plain version, with its window in shared memory
-    (R = 8) and through the read-only cache (R = 512, 256 KB)."""
-    from gnnla_tpu_torch.ops.gather_probe import (GatherProbe, axis0_plain,
-                                                  axis0_shared)
+    """K8 bitwise its plain version on its lane slabs (the wrapper's path
+    at both R), in the earlier whole-window design (R = 8) and through the
+    read-only cache."""
+    from gnnla_tpu_torch.ops.gather_probe import (GatherProbe, axis0_cuda,
+                                                  axis0_path, axis0_plain)
     from gnnla_tpu_torch.scratch.probe_dyngather import axis0_inputs
 
-    assert axis0_shared(R) == (R == 8)
+    assert axis0_path(R) == "slab"
     win, idx = axis0_inputs(R, 4)
     args = [torch.from_numpy(a).to(cuda) for a in (win, idx)]
     probe = GatherProbe()
@@ -1328,6 +1370,26 @@ def test_gather_axis0_kernel_is_exact(cuda, R):
     assert torch.equal(out, torch.gather(args[0], 0,
                                          args[1].long().view(-1, 128))
                        .view(out.shape))
+    for path in (("window", "read-only cache") if R == 8
+                 else ("read-only cache",)):
+        assert torch.equal(axis0_cuda(*args, path=path), out)
+
+
+@pytest.mark.parametrize("R,n_blocks", [(8, 512), (512, 64), (1816, 2),
+                                        (1817, 2), (3, 5)])
+def test_gather_axis0_slab_at_the_probe_sizes_and_limits(cuda, R, n_blocks):
+    """K8 at the probe's full sizes, at the slab limit (R = 1,816, 227 KB
+    of shared memory), just past it (the read-only cache) and on an odd R:
+    bitwise its plain version."""
+    from gnnla_tpu_torch.ops.gather_probe import (axis0_cuda, axis0_path,
+                                                  axis0_plain)
+    from gnnla_tpu_torch.scratch.probe_dyngather import axis0_inputs
+
+    assert axis0_path(R) == ("slab" if R <= 1816 else "read-only cache")
+    args = [torch.from_numpy(a).to(cuda) for a in axis0_inputs(R, n_blocks)]
+    out = axis0_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, axis0_plain(*args))
 
 
 def test_ablation_variants_are_their_plain_versions(cuda):

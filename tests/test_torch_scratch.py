@@ -149,10 +149,10 @@ def test_ellw_window_path_and_refusals():
     column outside its window."""
     meta = E.build_ellw(delaunay(3000))
     gen = np.random.default_rng(3)
-    rows = np.arange(20_000)[:, None]
-    wide = E.from_slots(np.clip(rows + gen.integers(-7000, 7001, (20_000, 6)),
-                                0, 19_999),
-                        gen.standard_normal((20_000, 6)).astype(np.float32))
+    rows = np.arange(40_000)[:, None]
+    wide = E.from_slots(np.clip(rows + gen.integers(-15_000, 15_001,
+                                                    (40_000, 6)), 0, 39_999),
+                        gen.standard_normal((40_000, 6)).astype(np.float32))
     assert meta["W"] * 4 <= E.ELLW_SMEM_BYTES < wide["W"] * 4
     assert E.EllwSpMV(meta, device=CPU).path == "shared"
     assert E.EllwSpMV(wide, device=CPU).path == "read-only cache"
