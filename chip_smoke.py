@@ -368,6 +368,17 @@ depth, and the multichip dry run:
                     checks, the JAX line; K2's launches in the NCCL run
                     (its sharded stream matvec and stream V-cycle) and a
                     `csr_spmv[dryrun_stream_shard]` row.
+The twin of the JAX repository's bench.py:
+ 53. bench_twin     — `python -m gnnla_tpu_torch.bench 512 100` in a
+                    subprocess on the card: exit 0; every default section
+                    in `sections_done`, none failed or skipped; every
+                    `*_edges_per_s` finite and positive, every
+                    `*_roofline_frac` at most 1.05, every in-run error
+                    under the bench's own assert; a row for each kernel
+                    path (K1 f32 and bf16, K4 over 100 steps, K2 on the
+                    k-NN-32 fixture, K3 at M = 8) with launches in the run;
+                    the headline and the rows' profiler device-busy ms
+                    beside their wall ms. The rows join the kernels line.
 Then the script's seconds (`script`).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
@@ -611,6 +622,23 @@ RHO_W23_RTOL = 1e-6
 RHO_LEARNED_RTOL = 1e-4
 REPRO_EPOCHS = 2
 DRYRUN_TIMEOUT_S = 180
+# the bench twin's run in phase 53 (a grid side of 512, 100 applies), its
+# time limit, and the bench's in-run asserts on its errors
+BENCH_ARGS = ("512", "100")
+BENCH_TIMEOUT_S = 300
+BENCH_DEFAULT_SECTIONS = ("spmv", "general", "agg", "diffusion", "train",
+                          "sharded", "solvers", "convergence", "spmm", "bsr")
+BENCH_ERR_LIMITS = {"general_graph_relerr": 1e-4,
+                    "agg4_unstructured_rel_err": 1e-5,
+                    "general_graph_spmm_relerr": 1e-4,
+                    "general_graph_bsr_relerr": 1e-4,
+                    "sharded_stream_spmv_rel_err": 1e-5,
+                    "sharded_stream_vjp_x_rel_err": 1e-5,
+                    "sharded_vcycle_rel_err": 1e-4,
+                    "sharded_stencil_rel_err": 1e-5}
+BENCH_KERNEL_ROWS = ("dia_spmv[bench]", "dia_spmv_bf16[bench]",
+                     "stencil[bench,100 steps]", "csr_spmv[bench,knn32]",
+                     "csr_spmm[bench,M=8]")
 
 
 def emit(obj) -> None:
@@ -3789,6 +3817,48 @@ def repro_phases(dev, lib, flush, smi) -> dict:
     return dryrun_phase(dev, lib, flush, smi)
 
 
+def bench_twin(smi) -> list:
+    """Phase 53: the bench twin in a subprocess on the card; returns its
+    kernel rows (their launches are the run's)."""
+    p, secs = run_module(["gnnla_tpu_torch.bench", *BENCH_ARGS],
+                         BENCH_TIMEOUT_S)
+    require(p.returncode == 0, (p.returncode, p.stderr[-6000:]))
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    extra = line["extra"]
+    require(line["metric"] == "spmv_edges_per_s"
+            and extra["sections_done"] == list(BENCH_DEFAULT_SECTIONS)
+            and not extra.get("failed_sections")
+            and not extra.get("skipped_sections"),
+            (extra["sections_done"], extra.get("failed_sections"),
+             extra.get("skipped_sections")))
+    rates = {k: v for k, v in extra.items() if k.endswith("_edges_per_s")}
+    require(rates and all(v is not None and np.isfinite(v) and v > 0
+                          for v in rates.values()), rates)
+    fracs = {k: v for k, v in extra.items() if k.endswith("_roofline_frac")}
+    require(len(fracs) == 3 and all(v is not None and 0 < v <= 1.05
+                                    for v in fracs.values()), fracs)
+    errs = {k: extra[k] for k in BENCH_ERR_LIMITS}
+    require(all(errs[k] < lim for k, lim in BENCH_ERR_LIMITS.items()), errs)
+    require(np.isfinite(line["value"]) and line["value"] == max(
+        extra[k] for k in ("coo_segment_edges_per_s",
+                           "dia_shift_edges_per_s", "dia_pallas_edges_per_s",
+                           "dia_pallas_bf16_edges_per_s",
+                           "stencil_resident_edges_per_s")), line["value"])
+    rows = extra["kernels"]
+    require([r["name"] for r in rows] == list(BENCH_KERNEL_ROWS)
+            and all(r["launches"] > 0 for r in rows),
+            [(r["name"], r["launches"]) for r in rows])
+    emit(dict(phase="bench_twin", argv=list(BENCH_ARGS), seconds=secs,
+              value=line["value"], vs_baseline=line["vs_baseline"],
+              device=extra["device"], rel_errs=errs, roofline_fracs=fracs,
+              device_busy_vs_wall_ms={
+                  r["name"]: dict(device_ms=r["device_ms"],
+                                  wall_ms=r["wall_ms"], launches=r["launches"])
+                  for r in rows},
+              nvidia_smi=smi))
+    return rows
+
+
 def main() -> int:
     # no cyclic-garbage collection pause may land inside a timed window;
     # reference counting still frees every tensor of this short run
@@ -4013,6 +4083,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += scratch_phases(dev, lib, flush, smi)
     kernels.append(repro_phases(dev, lib, flush, smi))
+    torch.cuda.empty_cache()  # the twin's subprocess shares the card
+    kernels += bench_twin(smi)
     kernels.append(k5_row)
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no jax, flax or gnnla_tpu imports in
 gnnla_tpu_torch or chip_smoke.py (nor of the JAX repository's scratch/
-scripts), and no quiet CPU fallback."""
+scripts or its root bench.py), and no quiet CPU fallback."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gnnla_tpu",
-             "scratch")
+             "scratch", "bench")
 EXAMPLES = ("matvec", "residual_norm", "jacobi", "chebyshev", "power_method",
             "soc_interp", "vcycle", "multigrid_pcg", "train_jacobi",
             "train_diffusion", "band_layout", "unstructured_ell",
@@ -46,7 +46,8 @@ def _imported_modules(path):
 
 def test_port_files_found():
     files = [os.path.relpath(p, ROOT) for p in _port_files()]
-    for must in ("chip_smoke.py", "gnnla_tpu_torch/models/vcycle.py",
+    for must in ("chip_smoke.py", "gnnla_tpu_torch/bench.py",
+                 "gnnla_tpu_torch/models/vcycle.py",
                  "gnnla_tpu_torch/models/geometric.py",
                  "gnnla_tpu_torch/ops/dia_spmv.py",
                  "gnnla_tpu_torch/ops/stream_spmv.py",
@@ -112,7 +113,7 @@ def test_no_jax_or_gnnla_tpu_imports(path):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, gnnla_tpu_torch.models, "
+    code = ("import sys, gnnla_tpu_torch.models, gnnla_tpu_torch.bench, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
             "gnnla_tpu_torch.ops.stencil_kernel, gnnla_tpu_torch.native_ext, "
             "gnnla_tpu_torch.training, gnnla_tpu_torch.amg.aggregation, "
@@ -278,6 +279,7 @@ def test_build_is_lazy():
     """Importing every port module (and chip_smoke) builds and loads no
     kernel, so the CPU needs no nvcc."""
     code = ("import chip_smoke, gnnla_tpu_torch.models, "
+            "gnnla_tpu_torch.bench, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
             "gnnla_tpu_torch.ops.stencil_kernel, "
             "gnnla_tpu_torch.training, gnnla_tpu_torch.utils, "
