@@ -361,8 +361,10 @@ depth, and the multichip dry run:
                     dataset: finite.
  51. repro_grid     — the five combinations at 300 x n = 48, 2 epochs
                     each: finite, best_index the argmin of the val loss.
- 52. dryrun         — `dryrun_multichip(2)` on two gloo ranks sharing card
-                    0 (mesh data 2 x rows 1) and `dryrun_multichip(1)` on
+ 52. dryrun         — `graft_entry.dryrun_multichip(2)`, one call that
+                    spawns two gloo ranks sharing card 0 (mesh data 2 x
+                    rows 1; `parallel.spawn_ranks`), and
+                    `dryrun_multichip(1)` inside this process's world of
                     one NCCL rank: the step's loss and new parameters
                     within 1e-6 of the step with no mesh, the flat-mesh
                     checks, the JAX line; K2's launches in the NCCL run
@@ -379,6 +381,21 @@ The twin of the JAX repository's bench.py:
                     k-NN-32 fixture, K3 at M = 8) with launches in the run;
                     the headline and the rows' profiler device-busy ms
                     beside their wall ms. The rows join the kernels line.
+The twin of the JAX repository's __graft_entry__.py:
+ 54. graft_entry    — `graft_entry.entry()` (the 16^2 Laplacian, CLJP
+                    two-grid setup, plain DIA A and Ac, COO P) on the
+                    card: b and x bitwise the CPU's, `fn(*args)` within
+                    rtol 2e-5, atol 2e-5 * max|y| of `entry("cpu")`'s,
+                    two calls within that of each other (the COO P's
+                    index_add_ adds with atomics here; whether they are
+                    bitwise equal is printed), no argument written; the
+                    residual falls over 10 chained cycles; ms per call
+                    (20 warm calls), the profiler's device-busy ms and
+                    kernels per call, the idle share, setup seconds; no
+                    hand-written kernel in the profile and no K1, K2 or
+                    K4 counter moved; `python -m
+                    gnnla_tpu_torch.graft_entry` exits 0 with the norm
+                    line, the norm within 2e-5 of this one's.
 Then the script's seconds (`script`).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
@@ -437,7 +454,7 @@ from gnnla_tpu_torch.examples.run_all import MODULES as EXAMPLES
 from gnnla_tpu_torch.ops.bsr import permute, rcm_permutation, to_bsr
 from gnnla_tpu_torch.parallel import (
     build_sharded_stream, gather_vector, global_row_mesh,
-    initialize_distributed, local_block, make_sharded_jacobi,
+    initialize_distributed, join_spawned, local_block, make_sharded_jacobi,
     make_sharded_matvec, make_sharded_mg_pcg, make_sharded_norm,
     make_sharded_power_method, make_sharded_stream_vcycle,
     make_sharded_vcycle, partition_rows, shard_vector, unshard_vector)
@@ -449,6 +466,7 @@ from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stencil import (stencil_apply_plain,
                                          stencil_matvec, stencil_transpose)
 from gnnla_tpu_torch.ops.stencil_kernel import (TILES, StencilCall,
+                                                StencilSpMV,
                                                 make_stencil_jacobi,
                                                 make_stencil_power,
                                                 make_stencil_residual,
@@ -473,7 +491,7 @@ from gnnla_tpu_torch.ops.stream_ablate import (VARIANTS, StreamAblation,
 from gnnla_tpu_torch.scratch import (ablate_stream, bench_stream,
                                      probe_dyngather, probe_gather,
                                      probe_stream, proto_ellw)
-from gnnla_tpu_torch.parallel.dryrun import dryrun_multichip
+from gnnla_tpu_torch import graft_entry
 from gnnla_tpu_torch.scripts import (grid_diffusion, reproduce_diffusion,
                                      reproduce_jacobi,
                                      reproduce_jacobi_stable,
@@ -622,6 +640,14 @@ RHO_W23_RTOL = 1e-6
 RHO_LEARNED_RTOL = 1e-4
 REPRO_EPOCHS = 2
 DRYRUN_TIMEOUT_S = 180
+# the entry contract's phase: its tolerance against the CPU (the port's
+# fast-path tolerance), chained cycles, and the names of the hand-written
+# kernels, none of which its path may launch
+ENTRY_RTOL = 2e-5
+ENTRY_CHAINED = 10
+HAND_KERNELS = re.compile(
+    r"dia_tiles|csr_spmv|csr_spmm|stencil_step|stencil_tile|norm_finalize|"
+    r"scale_inplace|ellw_spmv|gather_axis|health_kernel")
 # the bench twin's run in phase 53 (a grid side of 512, 100 applies), its
 # time limit, and the bench's in-run asserts on its errors
 BENCH_ARGS = ("512", "100")
@@ -906,6 +932,7 @@ def profile_cycles(run_cycles) -> dict:
     rows.sort(key=lambda r: -r[2])
     return dict(device_busy_ms_per_cycle=sum(r[2] for r in rows),
                 launches_per_cycle=sum(r[1] for r in rows),
+                kernel_names=sorted(r[0] for r in rows),
                 top_kernels_per_cycle=[
                     dict(kernel=k, launches=c, ms=m) for k, c, m in rows[:12]])
 
@@ -3708,70 +3735,26 @@ def dryrun_summary(res: dict) -> dict:
         "line")}
 
 
-def dryrun_rank(rank: int, store: str, out: str) -> None:
-    """One of two gloo processes on card 0 (phase 52), spawned:
-    `dryrun_multichip(2)` on a data 2 x rows 1 mesh."""
-    from gnnla_tpu_torch.parallel import collectives
-
-    torch.cuda.set_device(0)
-    initialize_distributed(f"file://{store}", 2, rank,
-                           device=torch.device("cuda", 0), backend="gloo",
-                           timeout=120)
-    res = quiet(dryrun_multichip, 2, device_type="cuda")
-    with open(os.path.join(out, f"dryrun{rank}.json"), "w") as f:
-        json.dump(dict(dryrun_summary(res), mesh=list(res["mesh"]),
-                       staged_transfers=collectives.staged_transfers), f)
-    dist.destroy_process_group()
-
-
-def join_spawned(ctxs: dict, timeout: float) -> dict:
-    """Wait for each group of spawned processes; {name: error} of those
-    that failed or outlived `timeout` (killed)."""
-    errors = {}
-    deadline = time.monotonic() + timeout
-    for name, ctx in ctxs.items():
-        try:
-            while not ctx.join(timeout=max(1.0,
-                                           deadline - time.monotonic())):
-                if time.monotonic() >= deadline:
-                    errors[name] = "timed out"
-                    break
-        except Exception as e:  # noqa: BLE001 — the caller re-raises
-            errors[name] = f"{type(e).__name__}: {e}"[-4000:]
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                p.join(5)
-    return errors
-
-
 def dryrun_phase(dev, lib, flush, smi) -> dict:
-    """Phase 52: the dry run on two gloo ranks sharing the card and on one
-    NCCL rank; returns the K2 row of the NCCL run's stream shard."""
-    import torch.multiprocessing as mp
-
+    """Phase 52: the dry run as one call on two spawned gloo ranks sharing
+    the card (`graft_entry.dryrun_multichip(2)`), and inside this
+    process's world of one NCCL rank; returns the K2 row of the NCCL
+    run's stream shard."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ctx = mp.start_processes(
-            dryrun_rank, args=(os.path.join(tmp, "store"), tmp), nprocs=2,
-            join=False, start_method="spawn")
-        errors = join_spawned({"gloo": ctx}, DRYRUN_TIMEOUT_S)
-        require(not errors, errors)
-        ranks = []
-        for r in range(2):
-            with open(os.path.join(tmp, f"dryrun{r}.json")) as f:
-                ranks.append(json.load(f))
+    two = graft_entry.dryrun_multichip(2, timeout=DRYRUN_TIMEOUT_S)
     two_s = time.perf_counter() - t0
-    require(ranks[0]["mesh"] == [2, 1] and ranks[0]["line"].startswith(
-        "dryrun_multichip(2): ") and ranks[0]["staged_transfers"] > 0, ranks)
+    require(tuple(two["mesh"]) == (2, 1) and two["line"].startswith(
+        "dryrun_multichip(2): ") and two["backend"] == "gloo"
+        and two["staged_transfers"] > 0, dryrun_summary(two))
+    require(two["loss_rel_gap"] <= 1e-6 and two["param_max_abs_gap"]
+            <= 1e-6, dryrun_summary(two))
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as store:
         initialize_distributed(f"file://{os.path.join(store, 'rdv')}", 1, 0,
                                device="cuda")
         try:
-            res = quiet(dryrun_multichip, 1)
+            res = quiet(graft_entry.dryrun_multichip, 1)
         finally:
             dist.destroy_process_group()
     one_s = time.perf_counter() - t0
@@ -3796,7 +3779,9 @@ def dryrun_phase(dev, lib, flush, smi) -> dict:
                bound_ms=bound_ms, bound_by=bound_by,
                library_ms=cuda_ms_cold(lambda: lib_mat @ x, 20, flush),
                shape=list(csr.shape), nnz=csr.nnz, **k2_fields(csr))
-    emit(dict(phase="dryrun", two_gloo_ranks=ranks, two_ranks_s=two_s,
+    emit(dict(phase="dryrun", two_gloo_ranks=dict(
+        dryrun_summary(two), backend=two["backend"],
+        staged_transfers=two["staged_transfers"]), two_ranks_s=two_s,
               one_nccl_rank=dryrun_summary(res), one_rank_s=one_s,
               k2_row=row, nvidia_smi=smi))
     return row
@@ -3857,6 +3842,95 @@ def bench_twin(smi) -> list:
                   for r in rows},
               nvidia_smi=smi))
     return rows
+
+
+def kernel_wrappers() -> list:
+    """Every live K1, K2 and K4 wrapper (the objects whose counters move
+    where they launch their kernels)."""
+    kinds = (DiaKernelOperator, CsrSpMV, StencilCall, StencilSpMV)
+    with warnings.catch_warnings():  # deprecated objects met on the heap
+        warnings.simplefilter("ignore")
+        return [o for o in gc.get_objects() if isinstance(o, kinds)]
+
+
+def launch_counts(wrappers: list) -> list:
+    return [tuple(getattr(o, a, 0) for a in ("launches", "launches_mm",
+                                             "launches_t"))
+            for o in wrappers]
+
+
+def graft_entry_phase(smi) -> dict:
+    """Phase 54: the entry contract's flagship cycle (`graft_entry.entry`)
+    on the card against `entry("cpu")`, ten chained cycles, purity, times
+    and the profiler's kernels; no hand-written kernel launches; then
+    `python -m gnnla_tpu_torch.graft_entry`."""
+    wrappers = kernel_wrappers()
+    counts = launch_counts(wrappers)
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup, b, x = args
+    require(type(setup.A) is DIAOperator and type(setup.Ac) is DIAOperator
+            and type(setup.P) is SparseOperator,
+            [type(op).__name__ for op in (setup.A, setup.Ac, setup.P)])
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    require(torch.equal(b.cpu(), args_c[1])
+            and torch.equal(x.cpu(), args_c[2]), "b, x differ from the CPU's")
+    before = [t.clone() for t in (b, x, setup.A.diags, setup.Ac.diags,
+                                  setup.P.vals, setup.diag)]
+    y = fn(*args)
+    y2 = fn(*args)
+    torch.cuda.synchronize()
+    # the COO P's index_add_ adds with atomics on the card, in no fixed
+    # order: two calls agree within the tolerance, not bit for bit
+    repeat = compare(y2, y, "a second call", rtol=ENTRY_RTOL)
+    require(all(torch.equal(t0_, t1_) for t0_, t1_ in zip(before, (
+        b, x, setup.A.diags, setup.Ac.diags, setup.P.vals, setup.diag))),
+        "fn wrote into an argument")
+    want = fn_c(*args_c)
+    err = compare(y.cpu(), want, "entry() on the card against the CPU",
+                  rtol=ENTRY_RTOL)
+    res = [float(torch.linalg.vector_norm(b - setup.A.matvec(x)))]
+    xi = x
+    for _ in range(ENTRY_CHAINED):
+        xi = fn(setup, b, xi)
+        res.append(float(torch.linalg.vector_norm(b - setup.A.matvec(xi))))
+    require(all(r1 < r0 for r0, r1 in zip(res, res[1:])), res)
+
+    ms = cuda_ms(lambda: fn(*args), iters=20)
+    prof = profile_cycles(lambda c: [fn(*args) for _ in range(c)])
+    busy = prof["device_busy_ms_per_cycle"]
+    hand = [k for k in prof["kernel_names"] if HAND_KERNELS.search(k)]
+    require(not hand, hand)
+    require(launch_counts(wrappers) == counts,
+            "a K1, K2 or K4 wrapper launched during the phase")
+    held = {id(w) for w in wrappers}  # alive: their ids are theirs
+    new = [o for o in kernel_wrappers() if id(o) not in held]
+    require(all(c == (0, 0, 0) for c in launch_counts(new)),
+            "a new K1, K2 or K4 wrapper launched during the phase")
+
+    p, main_s = run_module(["gnnla_tpu_torch.graft_entry"], 120)
+    m = re.search(r"^entry\(\) vcycle output norm: (\S+)$", p.stdout, re.M)
+    require(p.returncode == 0 and m is not None,
+            (p.returncode, p.stdout[-2000:], p.stderr[-4000:]))
+    norm = float(torch.linalg.vector_norm(want))
+    require(abs(float(m.group(1)) - norm) <= ENTRY_RTOL * norm,
+            (m.group(1), norm))
+    emit(dict(phase="graft_entry", setup_s=setup_s, n=int(b.numel()),
+              A_K=len(setup.A.offsets), Ac_K=len(setup.Ac.offsets),
+              P_nnz=setup.P.nnz, rtol=ENTRY_RTOL, max_abs_err=err[
+                  "max_abs_err"], max_rel_err=err["max_rel_err"],
+              repeat_max_abs_diff=repeat["max_abs_err"],
+              repeat_bitwise=bool(torch.equal(y, y2)),
+              residual_norms=res, ms_per_call=ms,
+              device_busy_ms_per_call=busy,
+              kernels_per_call=prof["launches_per_cycle"],
+              idle_share=1.0 - busy / ms,
+              top_kernels_per_call=prof["top_kernels_per_cycle"],
+              hand_written_launches=0, main_s=main_s,
+              main_line=m.group(0), nvidia_smi=smi))
+    del wrappers, new
 
 
 def main() -> int:
@@ -4085,6 +4159,7 @@ def main() -> int:
     kernels.append(repro_phases(dev, lib, flush, smi))
     torch.cuda.empty_cache()  # the twin's subprocess shares the card
     kernels += bench_twin(smi)
+    graft_entry_phase(smi)
     kernels.append(k5_row)
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

@@ -207,6 +207,28 @@ def cusparse(row_ptr, cols, vals, shape) -> torch.Tensor:
                                        size=shape)
 
 
+def bf16_csr_yardstick(mat: torch.Tensor, x: torch.Tensor,
+                       want: torch.Tensor) -> dict:
+    """`torch.sparse.mm` on the same CSR with bf16 values and a bf16 x,
+    one flushed call (the bf16 rows' second library time, beside the f32
+    CSR's): its ms and max |error| against `want`, or the refusal when
+    the card's sparse library does not take bf16 (on the card only)."""
+    if x.device.type != "cuda":
+        return {}
+    try:
+        m16 = cusparse(mat.crow_indices(), mat.col_indices(),
+                       mat.values().to(torch.bfloat16), tuple(mat.shape))
+        x16 = x.to(torch.bfloat16)[:, None]
+        got = torch.sparse.mm(m16, x16)[:, 0].float()
+    except (RuntimeError, NotImplementedError) as e:
+        return dict(library_bf16_ms=None,
+                    library_bf16_refused=f"{type(e).__name__}: {e}"[:300])
+    flush = torch.ones(64 * 2 ** 20, device=x.device)
+    return dict(library_bf16_ms=flushed_ms(
+        lambda: torch.sparse.mm(m16, x16), flush, 20),
+        library_bf16_max_abs_err=float((got - want).abs().max()))
+
+
 def device_ms(fn, calls: int = 3) -> float:
     """The profiler's device-busy ms per call of fn (kernel time summed
     over `calls` calls). The first profile of a process starts the
@@ -427,12 +449,18 @@ def bench_spmv(n_grid: int, n_iters: int, extra: dict, dev: torch.device):
         log(f"dia/K1-bf16:     {pallas16_eps:.3e} edges/s (exact"
             + (f", {frac:.0%} of HBM roofline)" if frac else ")"))
         t16 = pmv16.tiles
+        # the library yardstick: the f32 CSR (as the f32 row's), and
+        # beside it the same CSR in bf16 where the library takes it
         kernel_row(extra, "dia_spmv_bf16[bench]", K1_SRC,
                    launches=pmv16.launches, wrapper=pmv16.matvec,
-                   plain=pmv16.plain().matvec, library=None, x=x0,
+                   plain=pmv16.plain().matvec,
+                   library=lambda x: lib_a @ x, x=x0,
                    bytes_moved=t16.nbytes + 2 * n * 4,
                    flops=2 * t16.seg_vals.numel(),
-                   wall_ms=pmv16.nnz / pallas16_eps * 1e3)
+                   wall_ms=pmv16.nnz / pallas16_eps * 1e3,
+                   library_csr="f32",
+                   **bf16_csr_yardstick(lib_a, x0,
+                                        pmv16.plain().matvec(x0)))
 
     # K4: n_iters steps in one call; bf16 taps count toward the headline
     # only when the storage round trip is bit-exact on this matrix

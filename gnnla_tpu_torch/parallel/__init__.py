@@ -9,8 +9,8 @@ from gnnla_tpu_torch.parallel.partition import (
     PartitionedOperator, partition_rows, shard_vector, unshard_vector)
 from gnnla_tpu_torch.parallel.distributed import (
     device_put_sharded, gather_vector, global_row_mesh, grid_mesh,
-    initialize_distributed, launched_ranks, local_block, mesh_device,
-    replicate_global, to_global)
+    initialize_distributed, join_spawned, launched_ranks, local_block,
+    mesh_device, replicate_global, spawn_ranks, to_global)
 from gnnla_tpu_torch.parallel.krylov import make_sharded_mg_pcg
 from gnnla_tpu_torch.parallel.vcycle import (make_sharded_multigrid_cycle,
                                              make_sharded_stream_vcycle,

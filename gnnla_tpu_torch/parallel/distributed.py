@@ -13,6 +13,10 @@ its own device (`to_global`, `local_block`); arrays every rank needs
 whole go to the device as they are (`replicate_global`). A sharded
 function takes and returns this rank's *local* block; `gather_vector`
 all-gathers a result for a caller.
+
+One call in one process can also start a world of its own:
+`spawn_ranks` runs a function on n spawned ranks and returns rank 0's
+result (`join_spawned` waits for spawned groups under one time limit).
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import pickle
 import tempfile
+import time
 from datetime import timedelta
 from typing import Optional, Sequence
 
@@ -88,6 +94,83 @@ def launched_ranks(device="cuda"):
             yield dev
         finally:
             dist.destroy_process_group()
+
+
+def join_spawned(ctxs: dict, timeout: float) -> dict:
+    """Wait for each group of spawned processes (`ProcessContext`s by
+    name) until `timeout` seconds have passed in all; {name: error} of
+    the groups that failed or outlived it. Processes still running are
+    killed."""
+    errors = {}
+    deadline = time.monotonic() + timeout
+    for name, ctx in ctxs.items():
+        try:
+            while not ctx.join(timeout=max(1.0,
+                                           deadline - time.monotonic())):
+                if time.monotonic() >= deadline:
+                    errors[name] = "timed out"
+                    break
+        except Exception as e:  # noqa: BLE001 — the caller re-raises
+            errors[name] = f"{type(e).__name__}: {e}"[-4000:]
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(5)
+    return errors
+
+
+def _spawned_rank(rank: int, fn, args: tuple, world: int, store: str,
+                  out: str, device_type: str, backend: str,
+                  timeout: float) -> None:
+    """Rank `rank` of `spawn_ranks`: its process group, fn(*args), and on
+    rank 0 the pickled return value in `out`."""
+    os.environ["LOCAL_RANK"] = str(rank)  # the card: rank mod the count
+    initialize_distributed(f"file://{store}", world, rank,
+                           device=device_type, backend=backend,
+                           timeout=timeout)
+    try:
+        res = fn(*args)
+        if rank == 0:
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, args: tuple = (), *, device="cuda",
+                timeout: float = 600.0):
+    """Run fn(*args) on every rank of a new world of `world` spawned
+    processes and return rank 0's return value (pickled across).
+
+    The ranks meet through a file store in a temporary directory. On
+    "cuda" rank r takes card r modulo the card count; the backend is NCCL
+    when every rank has a card of its own and gloo when ranks share one
+    (gloo stages card tensors through pinned host memory). On "cpu" they
+    are gloo ranks on the host. `fn` must be importable by name (spawn
+    pickles it). A rank that raises, or a world that outlives `timeout`
+    seconds, makes the call raise with that rank's error."""
+    import torch.multiprocessing as mp
+
+    dev = resolve_device(device)
+    if world < 1:
+        raise ValueError(f"need at least one rank, have {world}")
+    backend = "gloo"
+    if dev.type == "cuda" and world <= torch.cuda.device_count():
+        backend = "nccl"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.pkl")
+        ctx = mp.start_processes(
+            _spawned_rank, args=(fn, tuple(args), world,
+                                 os.path.join(tmp, "store"), out, dev.type,
+                                 backend, timeout),
+            nprocs=world, join=False, start_method="spawn")
+        errors = join_spawned({"ranks": ctx}, timeout)
+        if errors:
+            raise RuntimeError(f"{world} spawned {backend} ranks failed: "
+                               f"{errors['ranks']}")
+        with open(out, "rb") as f:
+            return pickle.load(f)
 
 
 def _default_device_type() -> str:

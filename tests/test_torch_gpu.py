@@ -1486,3 +1486,22 @@ def test_data_parallel_step_on_one_rank(nccl_mesh):
     _, h0 = train_jacobi(TrainJacobiConfig(**cfg))
     for k in ("train_loss", "val_loss", "test_loss"):
         np.testing.assert_allclose(h1[k], h0[k], rtol=1e-6)
+
+
+def test_graft_entry_on_the_card_matches_the_cpu(cuda):
+    """The entry contract's cycle on the card against `entry("cpu")`
+    within the contract's tolerance (rtol 2e-5, atol 2e-5 * max|y|), on
+    the same input bits; it writes into neither b nor x."""
+    from gnnla_tpu_torch import graft_entry
+
+    fn, (setup, b, x) = graft_entry.entry()
+    fn_c, args_c = graft_entry.entry(device="cpu")
+    assert b.device.type == "cuda"
+    assert torch.equal(b.cpu(), args_c[1]) and torch.equal(x.cpu(), args_c[2])
+    y = fn(setup, b, x)
+    torch.cuda.synchronize()
+    want = fn_c(*args_c)
+    scale = float(want.abs().max())
+    assert bool(((y.cpu() - want).abs() <= 2e-5 * want.abs() + 2e-5 * scale)
+                .all()), float((y.cpu() - want).abs().max())
+    assert torch.equal(x.cpu(), args_c[2]) and torch.equal(b.cpu(), args_c[1])

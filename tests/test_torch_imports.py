@@ -12,7 +12,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gnnla_tpu",
-             "scratch", "bench")
+             "scratch", "bench", "__graft_entry__")
 EXAMPLES = ("matvec", "residual_norm", "jacobi", "chebyshev", "power_method",
             "soc_interp", "vcycle", "multigrid_pcg", "train_jacobi",
             "train_diffusion", "band_layout", "unstructured_ell",
@@ -47,6 +47,7 @@ def _imported_modules(path):
 def test_port_files_found():
     files = [os.path.relpath(p, ROOT) for p in _port_files()]
     for must in ("chip_smoke.py", "gnnla_tpu_torch/bench.py",
+                 "gnnla_tpu_torch/graft_entry.py",
                  "gnnla_tpu_torch/models/vcycle.py",
                  "gnnla_tpu_torch/models/geometric.py",
                  "gnnla_tpu_torch/ops/dia_spmv.py",
@@ -114,6 +115,7 @@ def test_no_jax_or_gnnla_tpu_imports(path):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, gnnla_tpu_torch.models, gnnla_tpu_torch.bench, "
+            "gnnla_tpu_torch.graft_entry, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
             "gnnla_tpu_torch.ops.stencil_kernel, gnnla_tpu_torch.native_ext, "
             "gnnla_tpu_torch.training, gnnla_tpu_torch.amg.aggregation, "
@@ -228,6 +230,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
                  reproduce_diffusion, grid_diffusion):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             twin.main()
+    from gnnla_tpu_torch import graft_entry
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graft_entry.dryrun_multichip(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        graft_entry.main([])
     # asked for explicitly, the CPU runs the plain versions
     assert laplacian_2d(4, device="cpu").device.type == "cpu"
 
@@ -279,7 +288,7 @@ def test_build_is_lazy():
     """Importing every port module (and chip_smoke) builds and loads no
     kernel, so the CPU needs no nvcc."""
     code = ("import chip_smoke, gnnla_tpu_torch.models, "
-            "gnnla_tpu_torch.bench, "
+            "gnnla_tpu_torch.bench, gnnla_tpu_torch.graft_entry, "
             "gnnla_tpu_torch.ops.dia_spmv, gnnla_tpu_torch.ops.stream_op, "
             "gnnla_tpu_torch.ops.stencil_kernel, "
             "gnnla_tpu_torch.training, gnnla_tpu_torch.utils, "

@@ -9,6 +9,9 @@ from fixed numpy seeds that the tests repeat on the JAX side.
     start(suite, world, run_dir) -> ProcessContext    (spawned ranks)
     join(ctx, timeout) -> None | str                   (error text)
     result(run_dir, suite, world, case, rank=0) -> dict of arrays
+
+and `rank_or_raise`, `sleep_then_rank`: functions for `spawn_ranks` to
+run on its ranks.
 """
 
 from __future__ import annotations
@@ -487,6 +490,22 @@ SUITES = {
     "dryrun": [("dryrun", case_dryrun),
                ("psum_replicated", case_psum_replicated)],
 }
+
+
+# ------------------------------------- spawn_ranks (graft_entry tests)
+def rank_or_raise(failing_rank: int) -> int:
+    """This rank's number, or a ValueError on `failing_rank`."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    if rank == failing_rank:
+        raise ValueError(f"rank {rank} of {dist.get_world_size()} fails")
+    return rank
+
+
+def sleep_then_rank(seconds: float) -> int:
+    import torch.distributed as dist
+    time.sleep(seconds)
+    return dist.get_rank()
 
 
 # ------------------------------------------------------------ the ranks
