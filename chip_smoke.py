@@ -64,7 +64,8 @@ The grid path (kernel K4, the fused stencil) on the same 1024^2 operator:
  10. auto         — 5 `AutoTwoGrid` (stencil) cycles: the residual falls
                     every cycle; exactly 3 K4 launches per cycle; x matches
                     phase 5's plain cycle (1e-4 of max|x|).
- 11. grid_times   — ms/cycle of both (CUDA events over 20 warm cycles); per
+ 11. grid_times   — ms/cycle of both (CUDA events over 20 warm cycles;
+                    `run` replays a program, as in phases 9, 10 and 12); per
                     K4 shape the flushed and L2-warm times, plain time,
                     bound, launches per cycle and, for the two one-step
                     shapes, one cuSPARSE call (`mat @ x`, `torch.addmv`
@@ -395,7 +396,35 @@ The twin of the JAX repository's __graft_entry__.py:
                     hand-written kernel in the profile and no K1, K2 or
                     K4 counter moved; `python -m
                     gnnla_tpu_torch.graft_entry` exits 0 with the norm
-                    line, the norm within 2e-5 of this one's.
+                    line, the norm within 2e-5 of this one's, and the
+                    norm of `program(fn)`'s replay within 2e-5 of it.
+The twin of `jax.jit` and `lax.scan` (`utils/program.py`: one captured
+CUDA graph a call, replayed after the first):
+ 55. programs       — seven paths through the entry points a user calls,
+                    each as a program beside its eager body: the
+                    contract's cycle (`program(flagship_cycle)`), the
+                    fast cycle (`program(solve)` on K1 + K2, one cycle),
+                    `AutoTwoGrid.run` (stencil, K4), `GeometricVCycle.run`
+                    (K4), `program(amg_pcg)` on the fast setup (10
+                    iterations) and `program(mg_pcg)` on the SA K1 levels
+                    (15 iterations); and the geometric cycle on bf16
+                    taps, whose smoother is phase 8's bf16 Jacobi call
+                    (its launches over the replays, 2 a cycle, are
+                    printed). Each: the first call captures (its
+                    seconds and peak memory above the inputs, beside one
+                    eager call's), a replay within rtol 1e-5 + 1e-5 max|y|
+                    of the eager call (bitwise or not, printed, beside two
+                    eager calls' gap); every K1, K2 and K4 counter set to
+                    0, 20 replays, and each counter exactly 20 times what
+                    one eager call moves it by (one capture, no other);
+                    ms per call by CUDA events over 20 warm replays beside
+                    the eager body's, the profiler's device-busy ms of
+                    the replays (of the eager body where the profiler
+                    sees no kernel in a replay; the source is printed),
+                    the idle share. Then the guard: `mul_(1.0)` on the
+                    fast A's diagonals, and the next call captures anew,
+                    rebuilds A's K1 layout once and matches the eager
+                    solve.
 Then the script's seconds (`script`).
 TF32 is off for matmuls and cuDNN: the MLP runs in full f32.
 Then the `{"kernels": [...]}` line, and last `{"ok": true, "device": ...}`.
@@ -492,6 +521,7 @@ from gnnla_tpu_torch.scratch import (ablate_stream, bench_stream,
                                      probe_dyngather, probe_gather,
                                      probe_stream, proto_ellw)
 from gnnla_tpu_torch import graft_entry
+from gnnla_tpu_torch.utils.program import program
 from gnnla_tpu_torch.scripts import (grid_diffusion, reproduce_diffusion,
                                      reproduce_jacobi,
                                      reproduce_jacobi_stable,
@@ -662,6 +692,13 @@ BENCH_ERR_LIMITS = {"general_graph_relerr": 1e-4,
                     "sharded_stream_vjp_x_rel_err": 1e-5,
                     "sharded_vcycle_rel_err": 1e-4,
                     "sharded_stencil_rel_err": 1e-5}
+# phase 55: replay against eager (the COO P's index_add_ adds with atomics
+# on the card, so not bitwise), replays counted and timed, the two Krylov
+# solves' iterations
+PROGRAM_RTOL = 1e-5
+PROGRAM_REPLAYS = 20
+PROGRAM_AMG_PCG_ITERS = 10
+PROGRAM_MG_PCG_ITERS = 15
 BENCH_KERNEL_ROWS = ("dia_spmv[bench]", "dia_spmv_bf16[bench]",
                      "stencil[bench,100 steps]", "csr_spmv[bench,knn32]",
                      "csr_spmm[bench,M=8]")
@@ -961,6 +998,7 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     # no K1 or K2, as in the JAX package
     require(type(sv.setup.Ac) is DIAOperator, type(sv.setup.Ac))
     require(type(sv.setup.P) is SparseOperator, type(sv.setup.P))
+    SHARED.update(geo=geo, auto=auto)  # phase 55 runs both as programs
     ac_taps = geo._ac_call.taps
     emit(dict(phase="grid_setup", alternating_setup_s=t_alt,
               geometric_build_s=t_geo, auto_build_s=t_auto,
@@ -1964,7 +2002,7 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
                                for _ in range(5)])) / PCG_ITERS
     busy = profile_cycles(lambda c: [solve_once() for _ in range(c)])
     busy_iter = busy["device_busy_ms_per_cycle"] / PCG_ITERS
-    SHARED.update(sa=sa, mg_pcg_ms_per_iter=ms_iter)
+    SHARED.update(sa=sa, mg=mg, mg_pcg_ms_per_iter=ms_iter)
     peak = torch.cuda.max_memory_allocated()
     rebuilds = {lvl: a.rebuilds for lvl, a in on_k1.items()}
     require(not any(rebuilds.values()), ("K1 layouts rebuilt", rebuilds))
@@ -3917,6 +3955,10 @@ def graft_entry_phase(smi) -> dict:
     norm = float(torch.linalg.vector_norm(want))
     require(abs(float(m.group(1)) - norm) <= ENTRY_RTOL * norm,
             (m.group(1), norm))
+    mp = re.search(r"^program\(fn\) vcycle output norm: (\S+)$", p.stdout,
+                   re.M)
+    require(mp is not None and abs(float(mp.group(1)) - norm)
+            <= ENTRY_RTOL * norm, (p.stdout[-2000:], norm))
     emit(dict(phase="graft_entry", setup_s=setup_s, n=int(b.numel()),
               A_K=len(setup.A.offsets), Ac_K=len(setup.Ac.offsets),
               P_nnz=setup.P.nnz, rtol=ENTRY_RTOL, max_abs_err=err[
@@ -3929,8 +3971,167 @@ def graft_entry_phase(smi) -> dict:
               idle_share=1.0 - busy / ms,
               top_kernels_per_call=prof["top_kernels_per_cycle"],
               hand_written_launches=0, main_s=main_s,
-              main_line=m.group(0), nvidia_smi=smi))
+              main_line=m.group(0), main_program_line=mp.group(0),
+              nvidia_smi=smi))
     del wrappers, new
+
+
+COUNT_ATTRS = ("launches", "launches_mm", "launches_t")
+
+
+def zero_counts(wrappers: list) -> None:
+    for w in wrappers:
+        for attr in COUNT_ATTRS:
+            if hasattr(w, attr):
+                setattr(w, attr, 0)
+
+
+def outputs(y) -> tuple:
+    return y if isinstance(y, tuple) else (y,)
+
+
+def program_path(name, run, prog, eager, args, kw, wrappers) -> tuple:
+    """Phase 55's checks and times of one path: run(*args, **kw) the entry
+    point a user calls, which runs the fresh program `prog` (so its first
+    call here captures), and `eager` its body. Returns the path's record
+    and each wrapper's counts over the replays."""
+    def call():
+        return run(*args, **kw)
+
+    def plain():
+        return eager(*args, **kw)
+
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = plain()
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() - base
+    per_call = launch_counts(wrappers)
+    # two eager calls differ where atomics add (the COO P's index_add_):
+    # the spread the replay's error stands beside
+    again = outputs(plain())
+    repeat = max(float((a - w).abs().max() / w.abs().max())
+                 for a, w in zip(again, outputs(want)))
+    del again
+    require(name == "entry" or any(sum(c) for c in per_call),
+            f"{name}: no K1, K2 or K4 launch in an eager call")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    call()  # the warm-up, then the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    peak_capture = torch.cuda.max_memory_allocated() - base
+    got = call()  # a replay
+    torch.cuda.synchronize()
+    errs = [compare(g, w, f"{name}: replay against eager", rtol=PROGRAM_RTOL)
+            for g, w in zip(outputs(got), outputs(want))]
+    bitwise = all(torch.equal(g, w)
+                  for g, w in zip(outputs(got), outputs(want)))
+    # the path's run: every count 0 just before, read just after
+    zero_counts(wrappers)
+    for _ in range(PROGRAM_REPLAYS):
+        call()
+    torch.cuda.synchronize()
+    counts = launch_counts(wrappers)
+    require(counts == [tuple(PROGRAM_REPLAYS * v for v in c)
+                       for c in per_call], f"{name}: launch counts")
+    require((prog.captures, prog.replays) == (1, PROGRAM_REPLAYS + 1),
+            (name, prog.captures, prog.replays))
+    ms = cuda_ms(call, iters=PROGRAM_REPLAYS)
+    ms_eager = cuda_ms(plain, iters=PROGRAM_REPLAYS)
+    prof = profile_cycles(lambda c: [call() for _ in range(c)])
+    prof_eager = profile_cycles(lambda c: [plain() for _ in range(c)])
+    source = "replay" if prof["launches_per_cycle"] > 0 else "eager"
+    busy = (prof if source == "replay" else prof_eager)[
+        "device_busy_ms_per_cycle"]
+    return dict(
+        path=name, ms_per_call=ms, ms_per_call_eager=ms_eager,
+        device_busy_ms=busy, device_busy_source=source,
+        device_busy_ms_eager=prof_eager["device_busy_ms_per_cycle"],
+        kernels_per_call_replay=prof["launches_per_cycle"],
+        kernels_per_call_eager=prof_eager["launches_per_cycle"],
+        idle_share=1.0 - busy / ms,
+        idle_share_eager=1.0 - prof_eager["device_busy_ms_per_cycle"]
+        / ms_eager,
+        capture_s=capture_s, peak_capture_bytes=peak_capture,
+        peak_eager_bytes=peak_eager, bitwise=bitwise,
+        max_abs_err=max(e["max_abs_err"] for e in errs),
+        max_rel_err=max(e["max_rel_err"] for e in errs),
+        eager_repeat_max_rel_err=repeat,
+        hand_launches_per_call=sum(sum(c) for c in per_call),
+        hand_launches_in_replays=sum(sum(c) for c in counts)), dict(
+            zip(map(id, wrappers), counts))
+
+
+def programs_phase(A, fast, b, smi) -> None:
+    """Phase 55: seven paths as programs beside their eager bodies, and
+    the K1 guard (see the module doc)."""
+    n = A.n_rows
+    x0 = torch.zeros(n, device=b.device)
+    geo, auto, mg = SHARED.pop("geo"), SHARED.pop("auto"), SHARED.pop("mg")
+    sv = auto._stencil
+    # the geometric cycle on bf16 taps: its smoother is the K4 bf16 Jacobi
+    # call of phase 8 (3 affine steps, omega 0.7, the tile form)
+    geo16 = GeometricVCycle(A, (N_GRID, N_GRID), setup=geo.setup,
+                            tap_dtype=torch.bfloat16)
+    jac16 = geo16._pre._call
+    require(jac16.taps.dtype == torch.bfloat16 and jac16.n_steps == 3
+            and jac16.form.form == "tile", (jac16.taps.dtype, jac16.form))
+    # fresh programs (earlier phases replayed these objects' own), so that
+    # each path's first call here captures
+    geo.program, sv.program = program(geo.cycle), program(sv.cycle)
+    fn, entry_args = graft_entry.entry()
+    progs = {name: program(f) for name, f in (
+        ("entry", fn), ("fast_cycle", solve), ("amg_pcg", amg_pcg),
+        ("mg_pcg", mg_pcg))}
+    pcg = dict(flip_sign=True)
+    paths = [  # name, entry point, its program, eager body, args, kwargs
+        ("entry", progs["entry"], progs["entry"], fn, entry_args, {}),
+        ("fast_cycle", progs["fast_cycle"], progs["fast_cycle"], solve,
+         (fast, b, x0), dict(n_cycles=1)),
+        ("auto_stencil", auto.run, sv.program, sv.cycle, (b, x0), {}),
+        ("geometric", geo.run, geo.program, geo.cycle, (b, x0), {}),
+        ("geometric_bf16", geo16.run, geo16.program, geo16.cycle, (b, x0),
+         {}),
+        ("amg_pcg", progs["amg_pcg"], progs["amg_pcg"], amg_pcg,
+         (fast, b, x0), dict(n_iters=PROGRAM_AMG_PCG_ITERS, **pcg)),
+        ("mg_pcg", progs["mg_pcg"], progs["mg_pcg"], mg_pcg, (mg, b, x0),
+         dict(n_iters=PROGRAM_MG_PCG_ITERS, **pcg)),
+    ]
+    wrappers = kernel_wrappers()
+    results, replay_counts = zip(*(program_path(*path, wrappers)
+                                   for path in paths))
+    jac16_launches = replay_counts[4][id(jac16)][0]
+    require(jac16_launches == 2 * PROGRAM_REPLAYS, jac16_launches)
+    for r, iters in zip(results[5:], (PROGRAM_AMG_PCG_ITERS,
+                                      PROGRAM_MG_PCG_ITERS)):
+        r.update(iterations=iters, ms_per_iteration=r["ms_per_call"] / iters,
+                 ms_per_iteration_eager=r["ms_per_call_eager"] / iters)
+
+    # the guard: an in-place update of A's diagonals (its values kept)
+    run = progs["fast_cycle"]
+    rebuilds = fast.A.rebuilds
+    with torch.no_grad():
+        fast.A.diags.mul_(1.0)
+    y = run(fast, b, x0, n_cycles=1)
+    torch.cuda.synchronize()
+    require((run.captures, fast.A.rebuilds) == (2, rebuilds + 1),
+            (run.captures, fast.A.rebuilds, rebuilds))
+    want = solve(fast, b, x0, n_cycles=1)
+    compare(y, want, "the recapture's warm-up", rtol=PROGRAM_RTOL)
+    guard_err = compare(run(fast, b, x0, n_cycles=1), want,
+                        "a replay of the new capture", rtol=PROGRAM_RTOL)
+    require((run.captures, fast.A.rebuilds) == (2, rebuilds + 1),
+            (run.captures, fast.A.rebuilds, rebuilds))
+    emit(dict(phase="programs", rtol=PROGRAM_RTOL, replays=PROGRAM_REPLAYS,
+              n=n, paths=results, k4_bf16_jacobi_launches=jac16_launches,
+              guard=dict(captures=run.captures, k1_rebuilds_before=rebuilds,
+                         k1_rebuilds_after=fast.A.rebuilds,
+                         max_abs_err=guard_err["max_abs_err"]),
+              nvidia_smi=smi))
+    del wrappers
 
 
 def main() -> int:
@@ -4160,6 +4361,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the twin's subprocess shares the card
     kernels += bench_twin(smi)
     graft_entry_phase(smi)
+    programs_phase(A, fast, b, smi)
     kernels.append(k5_row)
     emit(dict(phase="script", seconds=time.perf_counter() - t_start))
     emit({"kernels": kernels})

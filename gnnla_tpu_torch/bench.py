@@ -31,8 +31,12 @@ Sections, in the JAX bench's order (the same keys in `extra`):
   sharded   `parallel/hardware_check.py` on a world of one rank.
   solvers   two-grid cycles on the COO path, plain DIA, the fast setup (K1
             both levels, K2 for P), StencilVCycle and GeometricVCycle (K4);
-            SA `mg_pcg` ms per iteration and iterations to 1e-8.
-  convergence  per-cycle convergence factors, classical and SA, 64^2 up.
+            SA `mg_pcg` ms per iteration and iterations to 1e-8. Each is
+            timed as the JAX bench times its jitted scans: as a program
+            (`utils/program.py`, one captured CUDA graph on the card); on
+            the card the eager loop's time goes on the same log line.
+  convergence  per-cycle convergence factors, classical and SA, 64^2 up,
+            their solves run as programs as the JAX bench jits them.
   spmm      kernel K3 (`CsrSpMV` on an [n, M] block, M = GNNLA_SPMM_RHS,
             default 8) on the general fixture, its error asserted.
   bsr       `ops/bsr.py::to_bsr` on the general fixture (capped at 2^17
@@ -88,6 +92,7 @@ from gnnla_tpu_torch.scratch._common import say as log
 from gnnla_tpu_torch.scratch._common import sync, where
 # the JAX bench's k-NN-32 Laplacian (bench.py:383), bitwise
 from gnnla_tpu_torch.scratch.bench_stream import knn_laplacian
+from gnnla_tpu_torch.utils.program import program
 
 # the H100 SXM's memory rate and f32 peak outside the tensor cores
 # (NVIDIA data sheet), as chip_smoke.py's HBM_BYTES_PER_S and F32_FLOPS:
@@ -747,12 +752,28 @@ def bench_agg_unstructured(extra: dict, dev: torch.device, fixture=None):
 
 
 def time_cycles(run, b, x0, n_cycles: int, dev: torch.device) -> float:
-    """Seconds per cycle: run(b, x) does n_cycles cycles; one warm-up run,
-    then two chained runs timed."""
+    """Seconds per cycle: run(b, x) does n_cycles cycles; one warm-up run
+    (for a program on the card, its capture), then two chained runs
+    timed."""
     x = run(b, x0)
     dt, x = seconds(lambda: run(b, run(b, x)), dev)
     finite(x, "cycle")
     return dt / (n_cycles * 2)
+
+
+def time_program(fn, b, x0, n_cycles: int, dev: torch.device,
+                 eager=None) -> tuple:
+    """(ms per cycle of `program(fn)`, of `eager` (default fn) or None):
+    fn(b, x) does n_cycles cycles. The eager loop is timed on the card
+    only, to compare with: on the CPU a program is fn itself."""
+    ms = time_cycles(program(fn), b, x0, n_cycles, dev) * 1e3
+    if dev.type != "cuda":
+        return ms, None
+    return ms, time_cycles(eager or fn, b, x0, n_cycles, dev) * 1e3
+
+
+def eager_note(ms) -> str:
+    return "" if ms is None else f" (eager {ms:.2f})"
 
 
 def pcg_iters(hist: torch.Tensor, b: torch.Tensor):
@@ -791,38 +812,44 @@ def bench_solvers(n_grid: int, extra: dict, dev: torch.device):
     x0 = torch.zeros(n, device=dev)
     n_cyc = 5
 
-    def cycles(s):
+    def cycles(s):  # the JAX bench's jitted `solve` scan
         return lambda bb, xx: solve(s, bb, xx, n_cycles=n_cyc)
 
-    t = time_cycles(cycles(setup), b, x0, n_cyc, dev)
-    extra["vcycle_coo_ms"] = t * 1e3
-    log(f"vcycle (COO):    {t * 1e3:.2f} ms/cycle")
+    def chained(step):  # n_cyc chained cycles, as run_sv and run_gv scan
+        return lambda bb, xx: chain(lambda x: step(bb, x), xx, n_cyc)
 
-    t = time_cycles(cycles(setup_with_dia(setup)), b, x0, n_cyc, dev)
-    extra["vcycle_dia_ms"] = t * 1e3
-    log(f"vcycle (DIA):    {t * 1e3:.2f} ms/cycle")
+    t, te = time_program(cycles(setup), b, x0, n_cyc, dev)
+    extra["vcycle_coo_ms"] = t
+    log(f"vcycle (COO):    {t:.2f} ms/cycle{eager_note(te)}")
+
+    t, te = time_program(cycles(setup_with_dia(setup)), b, x0, n_cyc, dev)
+    extra["vcycle_dia_ms"] = t
+    log(f"vcycle (DIA):    {t:.2f} ms/cycle{eager_note(te)}")
 
     # the fast setup: both levels on K1, P and P^T on K2
     setup_f = setup_with_stream_p(setup_with_dia(setup, kernel=True))
-    t = time_cycles(cycles(setup_f), b, x0, n_cyc, dev)
-    extra["vcycle_dia_pallas_stream_ms"] = t * 1e3
+    t, te = time_program(cycles(setup_f), b, x0, n_cyc, dev)
+    extra["vcycle_dia_pallas_stream_ms"] = t
     launches = {"K1": setup_f.A.launches + setup_f.Ac.launches,
                 "K2": getattr(setup_f.P, "fwd", setup_f.P).launches
                 + getattr(setup_f.P, "bwd", setup_f.P).launches}
-    log(f"vcycle (K1 + K2 P): {t * 1e3:.2f} ms/cycle (launches {launches})")
+    log(f"vcycle (K1 + K2 P): {t:.2f} ms/cycle{eager_note(te)} (launches "
+        f"{launches})")
 
     sv = make_stencil_vcycle(setup, (n_grid, n_grid))
-    t = time_cycles(lambda bb, xx: chain(lambda x: sv.run(bb, x), xx, n_cyc),
-                    b, x0, n_cyc, dev)
-    extra["vcycle_stencil_ms"] = t * 1e3
-    log(f"StencilVCycle:   {t * 1e3:.2f} ms/cycle (K4 launches "
+    # each `run` a program inside the chain's program (they nest); the
+    # eager chain runs the cycles op by op
+    t, te = time_program(chained(sv.run), b, x0, n_cyc, dev,
+                         chained(sv.cycle))
+    extra["vcycle_stencil_ms"] = t
+    log(f"StencilVCycle:   {t:.2f} ms/cycle{eager_note(te)} (K4 launches "
         f"{sum(c.launches for c in sv.kernel_calls())})")
 
     gv = make_geometric_vcycle(A, (n_grid, n_grid))
-    t = time_cycles(lambda bb, xx: chain(lambda x: gv.run(bb, x), xx, n_cyc),
-                    b, x0, n_cyc, dev)
-    extra["vcycle_geometric_ms"] = t * 1e3
-    log(f"GeometricVCycle: {t * 1e3:.2f} ms/cycle (K4 launches "
+    t, te = time_program(chained(gv.run), b, x0, n_cyc, dev,
+                         chained(gv.cycle))
+    extra["vcycle_geometric_ms"] = t
+    log(f"GeometricVCycle: {t:.2f} ms/cycle{eager_note(te)} (K4 launches "
         f"{sum(c.launches for c in gv.kernel_calls())})")
 
     # smoothed-aggregation multilevel PCG to 1e-8 relative (recurrence)
@@ -836,23 +863,29 @@ def bench_solvers(n_grid: int, extra: dict, dev: torch.device):
     log(f"SA multigrid setup: {time.perf_counter() - t0:.1f}s "
         f"({setup_m.n_levels} levels, {n_dia} on K1)")
 
-    def run_pcg():
-        return mg_pcg(setup_m, b, torch.zeros_like(b), n_iters=n_it,
-                      flip_sign=True)
+    def pcg_runner(fn):  # the JAX bench's `@jax.jit run_pcg`
+        return lambda: fn(setup_m, b, torch.zeros_like(b), n_iters=n_it,
+                          flip_sign=True)
 
+    run_pcg = pcg_runner(program(mg_pcg))
     _, hist = run_pcg()
     dt, (x, _) = seconds(run_pcg, dev)
     finite(x, "mg_pcg")
+    note = ""
+    if dev.type == "cuda":
+        eager = pcg_runner(mg_pcg)
+        eager()
+        note = eager_note(seconds(eager, dev)[0] / n_it * 1e3)
     iters = pcg_iters(hist, b)
     extra["pcg_ms_per_iter"] = dt / n_it * 1e3
     extra["pcg_iters_to_1e8"] = iters
     if iters:
         extra["pcg_seconds_to_1e8"] = dt / n_it * iters
-        log(f"SA mg_pcg:       {dt / n_it * 1e3:.2f} ms/iter, {iters} iters "
-            f"to 1e-8 ({dt / n_it * iters * 1e3:.1f} ms)")
+        log(f"SA mg_pcg:       {dt / n_it * 1e3:.2f} ms/iter{note}, {iters} "
+            f"iters to 1e-8 ({dt / n_it * iters * 1e3:.1f} ms)")
     else:
         extra["pcg_seconds_to_1e8"] = None
-        log(f"SA mg_pcg:       {dt / n_it * 1e3:.2f} ms/iter, no 1e-8 "
+        log(f"SA mg_pcg:       {dt / n_it * 1e3:.2f} ms/iter{note}, no 1e-8 "
             f"within {n_it} iters")
 
 
@@ -928,16 +961,17 @@ def convergence_factors(s: int, dev: torch.device, k: int = 8) -> tuple:
     b = torch.ones(op.n_rows, device=dev)
     r0 = float(torch.linalg.vector_norm(b))
 
+    # each solve a program, as the JAX bench jits both
     tg = setup_twogrid(op, splitting="cljp", seed=0)
-    xk = solve(tg, b, torch.zeros_like(b), n_cycles=k)
+    xk = program(solve)(tg, b, torch.zeros_like(b), n_cycles=k)
     cf_cl = (float(torch.linalg.vector_norm(residual(op, b, xk))) / r0) \
         ** (1 / k)
 
     sa = setup_with_dia_multigrid(setup_sa_multigrid(op, seed=0),
                                   kernel=True)
-    xs = torch.zeros_like(b)
-    for _ in range(k):
-        xs = multigrid_cycle(sa, b, xs, n_pre=2, n_post=2)
+    xs = program(lambda st, bb: chain(
+        lambda x: multigrid_cycle(st, bb, x, n_pre=2, n_post=2),
+        torch.zeros_like(bb), k))(sa, b)
     cf_sa = (float(torch.linalg.vector_norm(residual(op, b, xs))) / r0) \
         ** (1 / k)
     return cf_cl, cf_sa

@@ -3,7 +3,9 @@
 
 entry(device="cuda") -> (fn, (setup, b, x)): the flagship forward, one
     full two-grid AMG V-cycle on the 2-D FD Laplacian of 16 x 16 (256
-    vertices), `fn(setup, b, x)`.
+    vertices), `fn(setup, b, x)`; eager, as the JAX `fn` is unjitted.
+    `utils.program.program(fn)` is its jitted form: on the card one
+    captured CUDA graph, replayed after the first call.
 dryrun_multichip(n, *, device="cuda") -> dict: the multichip dry run
     (`parallel/dryrun.py`) as one call in one process: inside an
     initialized process group of n ranks it runs there; otherwise it
@@ -12,8 +14,10 @@ dryrun_multichip(n, *, device="cuda") -> dict: the multichip dry run
     python -m gnnla_tpu_torch.graft_entry [--device cpu]
 
 runs `entry` once and prints the output's norm, as the JAX module's
-`__main__` does. Both functions run on the card unless the caller passes
-device="cpu", and raise when it is asked for and absent.
+`__main__` does, and beside it the norm of `program(fn)`'s output (on the
+card a replay of the captured graph). Both functions run on the card
+unless the caller passes device="cpu", and raise when it is asked for and
+absent.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from gnnla_tpu_torch.models.vcycle import (setup_twogrid, setup_with_dia,
 from gnnla_tpu_torch.parallel import dryrun
 from gnnla_tpu_torch.parallel.distributed import spawn_ranks
 from gnnla_tpu_torch.problems import laplacian_2d
+from gnnla_tpu_torch.utils.program import program
 
 N_GRID = 16  # the 256-vertex fixture: the contract's whole width
 DRYRUN_TIMEOUT_S = 600.0
@@ -110,8 +115,12 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     fn, example = entry(args.device)
     norm = float(torch.linalg.vector_norm(fn(*example)))
+    run = program(fn)
+    run(*example)  # on the card the warm-up, then the capture
+    norm_p = float(torch.linalg.vector_norm(run(*example)))
     print("entry() vcycle output norm:", norm)
-    if not math.isfinite(norm):
+    print("program(fn) vcycle output norm:", norm_p)
+    if not (math.isfinite(norm) and math.isfinite(norm_p)):
         print("the cycle's output is not finite", file=sys.stderr)
         return 1
     return 0

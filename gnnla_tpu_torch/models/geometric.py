@@ -36,6 +36,7 @@ from gnnla_tpu_torch.ops.stencil_kernel import (StencilCall,
                                                 make_stencil_jacobi,
                                                 make_stencil_residual,
                                                 taps_tensor)
+from gnnla_tpu_torch.utils.program import program
 
 
 def _interp_planes(P: SparseOperator, grid_shape: Tuple[int, int]):
@@ -71,8 +72,10 @@ def _interp_planes(P: SparseOperator, grid_shape: Tuple[int, int]):
 class GeometricVCycle:
     """All-stencil two-grid cycle for grid operators (see module doc).
 
-    run(b, x) is one cycle on flat [n] vectors. The JAX class threads its
-    operator arrays through `cycle(args, b, x)` for its compiler; here
+    cycle(b, x) is one cycle on flat [n] vectors, op by op; run(b, x) runs
+    it as a program (`self.program`, the JAX `_jit_cycle`): on the card a
+    captured graph, replayed after the first call. The JAX class threads
+    its operator arrays through `cycle(args, b, x)` for its compiler; here
     every operator is bound to the object."""
 
     def __init__(self, A: SparseOperator, grid_shape, *, theta: float = 0.25,
@@ -123,6 +126,7 @@ class GeometricVCycle:
         self._ac_call = StencilCall(
             ac_shifts, taps_tensor(ac_planes, (h, wc), ac_dtype, device), 1,
             "plain")
+        self.program = program(self.cycle)  # the JAX `_jit_cycle`
 
     def kernel_calls(self):
         """The distinct K4 calls of a cycle (their `launches` counters)."""
@@ -174,8 +178,10 @@ class GeometricVCycle:
 
     # -- the cycle ---------------------------------------------------------
 
-    def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """One cycle on flat [n] vectors."""
+    def cycle(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One cycle on flat [n] vectors, op by op (capture-safe: the
+        Chebyshev scalars are Python floats, baked in at capture as they
+        are at trace time)."""
         b2 = b.reshape(self.grid_shape).float()
         x2 = self._pre.run(b2, x.reshape(self.grid_shape))
 
@@ -184,6 +190,11 @@ class GeometricVCycle:
         x2 = x2 + self._prolong(xc)
 
         return self._post.run(b2, x2).reshape(-1)
+
+    def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One cycle on flat [n] vectors as a program (a captured graph
+        on the card; see `utils/program.py`)."""
+        return self.program(b.reshape(-1), x.reshape(-1))
 
 
 def make_geometric_vcycle(A: SparseOperator, grid_shape,

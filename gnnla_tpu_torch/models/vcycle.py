@@ -5,7 +5,9 @@ C/F splitting, direct interpolation, Galerkin product) and returns a
 `TwoGridSetup` of fixed-pattern operators on one device; `vcycle` is then
 Jacobi pre-smoothing, restriction of the residual, a Chebyshev coarse
 solve, prolongation of the correction and Jacobi post-smoothing. `solve`
-iterates cycles in a Python loop (the JAX package's `lax.scan`).
+iterates cycles in a Python loop (the JAX package's `lax.scan`); the
+classes' `run`/`solve` run as programs (`utils/program.py`, the twin of
+`jax.jit`): one captured CUDA graph on the card.
 
 Fast path: `setup_with_dia(setup, kernel=True)` puts A and Ac on kernel
 K1 (the DIA SpMV), `setup_with_stream_p` puts P and P^T on kernel K2 (the
@@ -50,6 +52,7 @@ from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
                                                 make_stencil_residual)
 from gnnla_tpu_torch.ops.stream_op import (rect_stream_operator,
                                            stream_operator)
+from gnnla_tpu_torch.utils.program import program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -264,6 +267,10 @@ class StencilVCycle:
     so only f32 rounding differs. The smoothing parameters are baked into
     the taps; build a new object to change them.
 
+    `cycle(b, x)` is one cycle op by op; `run(b, x)` runs it as a program
+    (`self.program`, the JAX `_jit_cycle`): on the card a captured graph,
+    replayed after the first call.
+
     K4 launches per cycle: n_pre + 1 + n_post (7 with the defaults)."""
 
     def __init__(self, setup: TwoGridSetup, grid_shape, *, n_pre: int = 3,
@@ -293,14 +300,16 @@ class StencilVCycle:
             diag=setup.diag, tap_dtype=tap_dtype)
         self._res = make_stencil_residual(setup.A, self.grid_shape,
                                           tap_dtype=tap_dtype)
+        self.program = program(self.cycle)  # the JAX `_jit_cycle`
 
     def kernel_calls(self):
         """The distinct K4 calls of a cycle (their `launches` counters)."""
         calls = (self._pre._call, self._post._call, self._res._call)
         return list({id(c): c for c in calls}.values())
 
-    def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """One cycle on flat [n] vectors."""
+    def cycle(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One cycle on flat [n] vectors, op by op (capture-safe: no host
+        synchronisation)."""
         P, Ac = self.setup.P, self.setup.Ac
         b2 = b.reshape(self.grid_shape).float()
         x2 = self._pre.run(b2, x.reshape(self.grid_shape))
@@ -310,6 +319,11 @@ class StencilVCycle:
         x2 = x2 + P.matvec(xc).reshape(self.grid_shape)
 
         return self._post.run(b2, x2).reshape(-1)
+
+    def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """One cycle on flat [n] vectors as a program (a captured graph
+        on the card; see `utils/program.py`)."""
+        return self.program(b.reshape(-1), x.reshape(-1))
 
 
 def make_stencil_vcycle(setup: TwoGridSetup, grid_shape,
@@ -342,7 +356,8 @@ def vcycle(setup: TwoGridSetup, b: torch.Tensor, x: torch.Tensor, *,
 
 def solve(setup: TwoGridSetup, b: torch.Tensor, x: torch.Tensor, *,
           n_cycles: int, **cycle_kwargs) -> torch.Tensor:
-    """Run n_cycles V-cycles."""
+    """Run n_cycles V-cycles (the JAX `lax.scan`: a plain function,
+    capture-safe, which `program(solve)` runs as one graph)."""
     b, x = b.reshape(-1), x.reshape(-1)
     for _ in range(n_cycles):
         x = vcycle(setup, b, x, **cycle_kwargs)
@@ -378,10 +393,12 @@ class AutoTwoGrid:
       coo      always works
 
     `layout` records the choice. `run(b, x)` is one cycle, `solve(b, x,
-    n_cycles=...)` several. The JAX package's `stream_backend` option has
-    no counterpart: the port has one backend. The JAX package's TPU VMEM
-    guard is not kept either, so on grids a TPU's VMEM cannot hold the
-    port picks "stencil" where the JAX package falls through to "dia"."""
+    n_cycles=...)` several, each a program (`utils/program.py`) as the
+    JAX methods are jitted: a captured graph on the card. The JAX
+    package's `stream_backend` option has no counterpart: the port has one
+    backend. The JAX package's TPU VMEM guard is not kept either, so on
+    grids a TPU's VMEM cannot hold the port picks "stencil" where the JAX
+    package falls through to "dia"."""
 
     def __init__(self, setup: TwoGridSetup, *, grid_shape=None,
                  layouts=("stencil", "dia", "stream", "coo"),
@@ -422,22 +439,27 @@ class AutoTwoGrid:
         else:
             raise ValueError(f"no layout accepted this operator: "
                              f"{self.why}")
+        if self._stencil is None:  # the JAX `_run`, and `solve`'s jit
+            self._run = program(vcycle)
+            self._solve = program(solve)
 
     def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """One two-grid cycle on the chosen path."""
+        """One two-grid cycle on the chosen path, as a program."""
         if self._stencil is not None:
             return self._stencil.run(b, x)
-        return vcycle(self.setup, b, x, **self.cycle_kwargs)
+        return self._run(self.setup, b, x, **self.cycle_kwargs)
 
     def solve(self, b: torch.Tensor, x: torch.Tensor, *,
               n_cycles: int) -> torch.Tensor:
+        """n_cycles cycles: on the stencil layout a loop of `run`s (as
+        the JAX method loops), else one program of `solve`."""
         if self._stencil is not None:
             x = x.reshape(-1)
             for _ in range(n_cycles):
                 x = self._stencil.run(b, x)
             return x
-        return solve(self.setup, b, x, n_cycles=n_cycles,
-                     **self.cycle_kwargs)
+        return self._solve(self.setup, b, x, n_cycles=n_cycles,
+                           **self.cycle_kwargs)
 
 
 def setup_auto(A: SparseOperator, *, theta: float = 0.25,

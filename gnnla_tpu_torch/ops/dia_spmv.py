@@ -54,6 +54,7 @@ import torch
 
 from gnnla_tpu_torch import _build
 from gnnla_tpu_torch.ops.dia import DIAOperator, dia_matvec, dia_transpose
+from gnnla_tpu_torch.utils.program import count, guard
 
 DIAG_DTYPES = (torch.float32, torch.bfloat16)
 TILE = 32  # rows per tile: a warp's rows (csrc/dia_spmv.cu kTile)
@@ -264,7 +265,7 @@ class DiaKernelOperator:
         updated in place since. A^T's dense diagonals, which the plain
         version needs, are kept only on the CPU: on the card they would
         double the operator's memory for nothing the kernel reads."""
-        key = (self.diags.data_ptr(), self.diags._version)
+        key = self._layout_key()
         if self._key != key:
             if self._key is not None:
                 self.rebuilds += 1
@@ -274,7 +275,11 @@ class DiaKernelOperator:
                 self.tiles_t = dia_tiles(t.diags, t.offsets)
             self.transposed = t if self.diags.device.type == "cpu" else None
             self._key = key
+        guard(self._layout_key, key)  # a captured program replays on these
         return self.tiles, self.tiles_t
+
+    def _layout_key(self):
+        return (self.diags.data_ptr(), self.diags._version)
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x with no autograd: K1 on a CUDA tensor (counted), the
@@ -282,7 +287,7 @@ class DiaKernelOperator:
         if x.device.type == "cpu":
             return dia_matvec(self.diags, self.offsets, x)
         y = dia_tiles_spmv_cuda(self.layouts()[0], x)
-        self.launches += 1
+        count(self, "launches")
         return y
 
     def launch_t(self, ybar: torch.Tensor) -> torch.Tensor:
@@ -293,7 +298,7 @@ class DiaKernelOperator:
             t = self.transposed
             return dia_matvec(t.diags, t.offsets, ybar)
         y = dia_tiles_spmv_cuda(tiles_t, ybar)
-        self.launches += 1
+        count(self, "launches")
         return y
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:

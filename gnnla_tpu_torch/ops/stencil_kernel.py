@@ -37,6 +37,7 @@ from gnnla_tpu_torch import _build
 from gnnla_tpu_torch.ops.stencil import (MAX_TAPS, MODES, check_mode,
                                          stencil_apply_plain, stencil_matvec,
                                          stencil_taps, stencil_transpose)
+from gnnla_tpu_torch.utils.program import count
 
 _THREADS = 256  # the step kernel's block size (kThreads in csrc/stencil.cu)
 _MODE_ID = {"plain": 0, "affine": 1, "normalize": 2}
@@ -291,8 +292,8 @@ class StencilCall:
             return self.plain(x2d, c)
         y = stencil_cuda(self.taps, self.shifts_host, x2d, self.n_steps,
                          self.mode, c, self.form)
-        self.launches += stencil_launches(self.mode, self.n_steps,
-                                          self.form.form)
+        count(self, "launches", stencil_launches(self.mode, self.n_steps,
+                                                 self.form.form))
         return y
 
 
@@ -383,8 +384,8 @@ class StencilSpMV:
                                        self.n_steps, "plain")
         out = stencil_cuda(taps_t, self._shifts_t_host, y2d, self.n_steps,
                            "plain", None, self.form_t)
-        self.launches_t += stencil_launches("plain", self.n_steps,
-                                            self.form_t.form)
+        count(self, "launches_t", stencil_launches("plain", self.n_steps,
+                                                   self.form_t.form))
         return out
 
     def matvec_n(self, x: torch.Tensor) -> torch.Tensor:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from gnnla_tpu_torch import _build
+from gnnla_tpu_torch.utils.program import count
 
 TILE = 1024  # the JAX packer's row tile / column superchunk width
 # K2's row blocks (csrc/csr_spmv.cu): nonzeros a block stages at once, rows
@@ -291,10 +292,7 @@ class CsrSpMV:
             return self.plain(x, vals)
         y = csr_spmv_cuda(self.row_ptr, self.cols, vals, x, self.shape[0],
                           self.row_blocks)
-        if x.ndim == 1:
-            self.launches += 1
-        else:
-            self.launches_mm += 1
+        count(self, "launches" if x.ndim == 1 else "launches_mm")
         return y
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -204,6 +204,44 @@ def test_pcg_iters_at_64_equal_jax():
         assert np.isfinite(extra[key]) and extra[key] > 0, key
 
 
+def test_solvers_and_convergence_time_programs(monkeypatch):
+    """The solvers section times what the JAX bench compiles: the three
+    `solve` scans, the StencilVCycle and geometric chains and SA `mg_pcg`
+    are each a program, called once to warm up (on the card: to capture)
+    and then inside every timed window; the convergence section's two
+    solves are programs too. (On the CPU a program is its function.)"""
+    made, windows = [], []
+
+    def recording(fn):
+        calls = []
+        made.append((fn, calls))
+        run = real_program(fn)
+
+        def call(*a, **k):
+            calls.append(k)
+            return run(*a, **k)
+        return call
+
+    def timed(fn, dev):
+        before = sum(len(c) for _, c in made)
+        out = real_seconds(fn, dev)
+        windows.append(sum(len(c) for _, c in made) - before)
+        return out
+
+    real_program, real_seconds = bench.program, bench.seconds
+    monkeypatch.setattr(bench, "program", recording)
+    monkeypatch.setattr(bench, "seconds", timed)
+    extra = {}
+    bench.bench_solvers(32, extra, CPU)
+    assert [len(c) for _, c in made] == [3, 3, 3, 3, 3, 2]
+    assert made[-1][0].__name__ == "mg_pcg"
+    assert windows == [2, 2, 2, 2, 2, 1]
+    made.clear()
+    bench.convergence_factors(32, CPU, k=2)
+    assert [len(c) for _, c in made] == [1, 1]
+    assert made[0][0].__name__ == "solve"
+
+
 @pytest.fixture
 def interpret_mode(monkeypatch):
     """pl.pallas_call in interpret mode, as tests/test_pallas.py runs it."""

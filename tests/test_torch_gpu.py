@@ -1505,3 +1505,155 @@ def test_graft_entry_on_the_card_matches_the_cpu(cuda):
     assert bool(((y.cpu() - want).abs() <= 2e-5 * want.abs() + 2e-5 * scale)
                 .all()), float((y.cpu() - want).abs().max())
     assert torch.equal(x.cpu(), args_c[2]) and torch.equal(b.cpu(), args_c[1])
+
+
+# ------------------------------------------------------------------ programs
+def _rand(n, seed, dev):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        n).astype(np.float32)).to(dev)
+
+
+def _replays(prog, call, eager, n_calls=3):
+    """Call a program n_calls times: the first captures, each later one
+    replays and matches the eager body; no two results share storage."""
+    outs = [call() for _ in range(n_calls)]
+    want = eager()
+    for y in outs:
+        _close(y, want)
+    assert len({y.data_ptr() for y in outs}) == n_calls
+    assert (prog.captures, prog.replays) == (1, n_calls - 1)
+
+
+def test_grid_cycles_replay_after_their_first_call(cuda):
+    """StencilVCycle.run and GeometricVCycle.run capture on their first
+    call and replay after, within RTOL of their eager cycle; the K4
+    counters read three eager cycles' launches after three calls."""
+    from gnnla_tpu_torch.models.geometric import GeometricVCycle
+    from gnnla_tpu_torch.models.vcycle import StencilVCycle, setup_twogrid
+    from gnnla_tpu_torch.problems import laplacian_2d
+
+    A = laplacian_2d(64, device=cuda).eliminate_zeros()
+    b, x = _rand(A.n_rows, 0, cuda), _rand(A.n_rows, 1, cuda)
+    for cyc in (StencilVCycle(setup_twogrid(A), (64, 64)),
+                GeometricVCycle(A, (64, 64))):
+        calls = cyc.kernel_calls()
+        _replays(cyc.program, lambda: cyc.run(b, x), lambda: cyc.cycle(b, x))
+        per = [c.launches for c in calls]
+        for c in calls:
+            c.launches = 0
+        cyc.cycle(b, x)
+        assert per == [4 * c.launches for c in calls]  # 3 runs + 1 eager
+
+
+def test_auto_two_grid_replays_on_its_layouts(cuda):
+    """AutoTwoGrid.run and .solve replay a captured graph after their
+    first call on the stencil layout (through StencilVCycle's program)
+    and on the dia layout (its own `_run` and `_solve`)."""
+    from gnnla_tpu_torch.models.vcycle import setup_auto, solve, vcycle
+    from gnnla_tpu_torch.problems import laplacian_2d, laplacian_nd
+
+    grid = setup_auto(laplacian_2d(64, device=cuda).eliminate_zeros())
+    assert grid.layout == "stencil"
+    b = _rand(64 * 64, 2, cuda)
+    x = torch.zeros_like(b)
+    _replays(grid._stencil.program, lambda: grid.run(b, x),
+             lambda: grid._stencil.cycle(b, x))
+    got = grid.solve(b, x, n_cycles=3)
+    assert grid._stencil.program.replays == 2 + 3
+    want = x
+    for _ in range(3):
+        want = grid._stencil.cycle(b, want)
+    _close(got, want)
+
+    A = laplacian_nd((37 * 41,), device=cuda)[0].eliminate_zeros()
+    band = setup_auto(A)
+    assert band.layout == "dia"
+    b = _rand(A.n_rows, 3, cuda)
+    x = torch.zeros_like(b)
+    _replays(band._run, lambda: band.run(b, x),
+             lambda: vcycle(band.setup, b, x))
+    _replays(band._solve, lambda: band.solve(b, x, n_cycles=3),
+             lambda: solve(band.setup, b, x, n_cycles=3))
+
+
+def test_fast_solve_program_counts_exactly_and_recaptures(cuda):
+    """program(solve) on the fast setup: after N calls the K1 and K2
+    counters read N eager calls' launches; an in-place update of A's
+    diagonals makes the next call capture anew (one rebuild, as eagerly),
+    and its result matches the eager solve."""
+    from gnnla_tpu_torch.models.vcycle import solve
+    from gnnla_tpu_torch.utils.program import program
+
+    _, fast = _fast(64, cuda)
+    ops = (fast.A, fast.Ac, fast.P.fwd, fast.P.bwd)
+    b = _rand(fast.A.n_rows, 4, cuda)
+    x = torch.zeros_like(b)
+    run = program(solve)
+    for op in ops:
+        op.launches = 0
+    for _ in range(5):
+        y = run(fast, b, x, n_cycles=2)
+    assert [op.launches for op in ops] == [5 * 14, 5 * 8, 5 * 2, 5 * 2]
+    assert (run.captures, run.replays) == (1, 4)
+    _close(y, solve(fast, b, x, n_cycles=2))
+    with torch.no_grad():
+        fast.A.diags.mul_(1.0)
+    y = run(fast, b, x, n_cycles=2)
+    assert (run.captures, fast.A.rebuilds, fast.Ac.rebuilds) == (2, 1, 0)
+    _close(run(fast, b, x, n_cycles=2), solve(fast, b, x, n_cycles=2))
+    assert run.replays == 5
+
+
+def test_programs_nest_and_refuse_grad(cuda):
+    """A program of chained StencilVCycle.run calls captures them as one
+    graph (the inner program neither warms up nor captures); an input
+    that requires grad is refused."""
+    from gnnla_tpu_torch.models.vcycle import StencilVCycle, setup_twogrid
+    from gnnla_tpu_torch.problems import laplacian_2d
+    from gnnla_tpu_torch.utils.program import program
+
+    A = laplacian_2d(64, device=cuda).eliminate_zeros()
+    sv = StencilVCycle(setup_twogrid(A), (64, 64))
+    b = _rand(A.n_rows, 5, cuda)
+
+    def three(bb, xx):
+        for _ in range(3):
+            xx = sv.run(bb, xx)
+        return xx
+
+    run = program(three)
+    x = torch.zeros_like(b)
+    run(b, x)
+    y = run(b, x)
+    assert (run.captures, sv.program.captures, sv.program.replays) == \
+        (1, 0, 0)
+    want = x
+    for _ in range(3):
+        want = sv.cycle(b, want)
+    _close(y, want)
+    with pytest.raises(NotImplementedError, match="requires grad"):
+        run(b, x.clone().requires_grad_(True))
+
+
+def test_a_failing_capture_raises(cuda):
+    """A body that synchronises with the host fails its capture, and the
+    call raises (it does not run eagerly instead). In a child process:
+    a failed capture can leave the CUDA context unusable."""
+    import subprocess
+    import sys
+
+    code = ("import torch\n"
+            "from gnnla_tpu_torch.utils.program import program\n"
+            "run = program(lambda x: x * float(x.sum()))\n"
+            "x = torch.ones(8, device='cuda')\n"
+            "try:\n"
+            "    run(x)\n"
+            "except RuntimeError:\n"
+            "    print('raised')\n"
+            "else:\n"
+            "    print('returned')\n")
+    root = __file__.rsplit("/tests/", 1)[0]
+    p = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=120)
+    # torch raises its AcceleratorError, a RuntimeError
+    assert p.stdout.strip() == "raised", (p.stdout, p.stderr[-2000:])

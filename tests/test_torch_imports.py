@@ -88,6 +88,7 @@ def test_port_files_found():
                  "gnnla_tpu_torch/utils/__init__.py",
                  "gnnla_tpu_torch/utils/metrics.py",
                  "gnnla_tpu_torch/utils/health.py",
+                 "gnnla_tpu_torch/utils/program.py",
                  "gnnla_tpu_torch/ops/bsr.py",
                  "gnnla_tpu_torch/examples/run_all.py",
                  "gnnla_tpu_torch/training/data_parallel.py",
@@ -128,6 +129,7 @@ def test_import_pulls_in_no_jax():
             "gnnla_tpu_torch.evaluation, gnnla_tpu_torch.evaluation.viz, "
             "gnnla_tpu_torch.cli, gnnla_tpu_torch.utils, "
             "gnnla_tpu_torch.utils.metrics, gnnla_tpu_torch.utils.health, "
+            "gnnla_tpu_torch.utils.program, "
             "gnnla_tpu_torch.ops.bsr, gnnla_tpu_torch.examples.run_all, "
             "gnnla_tpu_torch.parallel, "
             "gnnla_tpu_torch.training.data_parallel, "
