@@ -957,10 +957,12 @@ def profile_cycles(run_cycles) -> dict:
             torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
-        # kernels are the events on the CUDA side; their self time is the
-        # device time (profiler attribute names vary across releases)
+        # kernels are the events on the CUDA side, less the ranges of
+        # `record_function` shown there (the port's `gnnla.*` spans); their
+        # self time is the device time (attribute names vary by release)
         if getattr(ev, "device_type", None) != \
-                torch.autograd.DeviceType.CUDA:
+                torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
@@ -4110,20 +4112,21 @@ def programs_phase(A, fast, b, smi) -> None:
         r.update(iterations=iters, ms_per_iteration=r["ms_per_call"] / iters,
                  ms_per_iteration_eager=r["ms_per_call_eager"] / iters)
 
-    # the guard: an in-place update of A's diagonals (its values kept)
+    # the guard: an in-place update of A's diagonals (its values kept);
+    # the profiled calls above captured the instrumented graph too
     run = progs["fast_cycle"]
-    rebuilds = fast.A.rebuilds
+    rebuilds, captures = fast.A.rebuilds, run.captures
     with torch.no_grad():
         fast.A.diags.mul_(1.0)
     y = run(fast, b, x0, n_cycles=1)
     torch.cuda.synchronize()
-    require((run.captures, fast.A.rebuilds) == (2, rebuilds + 1),
+    require((run.captures, fast.A.rebuilds) == (captures + 1, rebuilds + 1),
             (run.captures, fast.A.rebuilds, rebuilds))
     want = solve(fast, b, x0, n_cycles=1)
     compare(y, want, "the recapture's warm-up", rtol=PROGRAM_RTOL)
     guard_err = compare(run(fast, b, x0, n_cycles=1), want,
                         "a replay of the new capture", rtol=PROGRAM_RTOL)
-    require((run.captures, fast.A.rebuilds) == (2, rebuilds + 1),
+    require((run.captures, fast.A.rebuilds) == (captures + 1, rebuilds + 1),
             (run.captures, fast.A.rebuilds, rebuilds))
     emit(dict(phase="programs", rtol=PROGRAM_RTOL, replays=PROGRAM_REPLAYS,
               n=n, paths=results, k4_bf16_jacobi_launches=jac16_launches,

@@ -248,8 +248,11 @@ def device_ms(fn, calls: int = 3) -> float:
             torch.cuda.synchronize()
     busy = 0.0
     for ev in prof.key_averages():
+        # kernels only: a range of `record_function` (the port's `gnnla.*`
+        # spans) also shows on the CUDA side, around the kernels it holds
         if getattr(ev, "device_type", None) != \
-                torch.autograd.DeviceType.CUDA:
+                torch.autograd.DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False):
             continue
         busy += getattr(ev, "self_device_time_total",
                         getattr(ev, "self_cuda_time_total", 0.0))

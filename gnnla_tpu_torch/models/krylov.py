@@ -19,6 +19,7 @@ import torch
 
 from gnnla_tpu_torch.models.multigrid import MultigridSetup, multigrid_cycle
 from gnnla_tpu_torch.models.vcycle import TwoGridSetup, vcycle
+from gnnla_tpu_torch.utils.program import span
 
 
 def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, *,
@@ -29,26 +30,28 @@ def cg(matvec: Callable, b: torch.Tensor, x0: torch.Tensor, *,
     precond : r -> M^-1 r (None = identity); an SPD preconditioner
               application, e.g. one symmetric V-cycle from zero.
     Returns (x, residual-norm history [n_iters]), both on the device.
-    The JAX package's guards stay: a zero p.Ap or r.z divides by 1."""
-    b, x = b.reshape(-1), x0.reshape(-1)
-    r = b - matvec(x)
-    z = precond(r) if precond is not None else r
-    p = z
-    rz = torch.dot(r, z)
-    hist = []
-    for _ in range(n_iters):
-        ap = matvec(p)
-        denom = torch.dot(p, ap)
-        alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
-        x = x + alpha * p
-        r = r - alpha * ap
+    The JAX package's guards stay: a zero p.Ap or r.z divides by 1. The
+    whole solve is the span `pcg` (`utils/program.py`)."""
+    with span("pcg"):
+        b, x = b.reshape(-1), x0.reshape(-1)
+        r = b - matvec(x)
         z = precond(r) if precond is not None else r
-        rz_new = torch.dot(r, z)
-        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p = z + beta * p
-        rz = rz_new
-        hist.append(torch.linalg.vector_norm(r))
-    return x, (torch.stack(hist) if hist else b.new_zeros(0))
+        p = z
+        rz = torch.dot(r, z)
+        hist = []
+        for _ in range(n_iters):
+            ap = matvec(p)
+            denom = torch.dot(p, ap)
+            alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = precond(r) if precond is not None else r
+            rz_new = torch.dot(r, z)
+            beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+            p = z + beta * p
+            rz = rz_new
+            hist.append(torch.linalg.vector_norm(r))
+        return x, (torch.stack(hist) if hist else b.new_zeros(0))
 
 
 def amg_pcg(setup: TwoGridSetup, b: torch.Tensor, x0: torch.Tensor, *,

@@ -31,6 +31,7 @@ from gnnla_tpu_torch.models.vcycle import setup_twogrid
 from gnnla_tpu_torch.ops.dia import DIAOperator, to_dia
 from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
 from gnnla_tpu_torch.ops.sparse import SparseOperator
+from gnnla_tpu_torch.utils.program import span, stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +112,10 @@ def setup_sa_multigrid(A: SparseOperator, *, theta: float = 0.08,
     the SA strength at theta * 0.5^level, Vanek aggregation, the
     tentative prolongator smoothed by one damped-Jacobi step, and the
     Galerkin product — scipy in float64, each P and Ac cast once to A's
-    dtype in the JAX package's entry order (`coalesce=False`)."""
+    dtype in the JAX package's entry order (`coalesce=False`). Each step
+    is a stage (`utils/program.py`): `sa.to_host`, `sa.strength`,
+    `sa.aggregate`, `sa.prolongator`, `sa.galerkin`, `sa.to_device` per
+    level, and `sa.coarse_interval`."""
     from gnnla_tpu_torch.amg.aggregation import (aggregate, sa_strength,
                                                  smoothed_prolongator,
                                                  tentative_prolongator)
@@ -123,35 +127,43 @@ def setup_sa_multigrid(A: SparseOperator, *, theta: float = 0.08,
         n = current.n_rows
         if n <= min_coarse:
             break
-        Ah = current.to_scipy().tocsr()
-        S = sa_strength(Ah, theta * (0.5 ** level))
-        agg = aggregate(S, seed=seed)
-        n_agg = int(agg.max()) + 1
+        with stage("sa.to_host"):
+            Ah = current.to_scipy().tocsr()
+        with stage("sa.strength"):
+            S = sa_strength(Ah, theta * (0.5 ** level))
+        with stage("sa.aggregate"):
+            agg = aggregate(S, seed=seed)
+            n_agg = int(agg.max()) + 1
         if n_agg >= 0.95 * n or n_agg < 1:
             break
-        P_hat = tentative_prolongator(agg)
-        P = smoothed_prolongator(Ah, S, P_hat, seed=seed)
-        Ac = (P.T @ Ah @ P).tocsr()
-        Ac.sum_duplicates()
-        Ac.sort_indices()
-        P = P.tocsr()
-        P.sum_duplicates()
-        P.sort_indices()
-        Pc = P.tocoo()
-        As.append(current)
-        Ps.append(SparseOperator.from_coo(Pc.row, Pc.col, Pc.data, P.shape,
-                                          dtype=dtype, coalesce=False,
-                                          device=device))
-        diags.append(_host_diag(current) if d is None
-                     else torch.as_tensor(d, device=device).reshape(-1))
-        d = None
-        Acc = Ac.tocoo()
-        current = SparseOperator.from_coo(Acc.row, Acc.col, Acc.data,
-                                          Ac.shape, dtype=dtype,
-                                          coalesce=False, device=device)
+        with stage("sa.prolongator"):
+            P_hat = tentative_prolongator(agg)
+            P = smoothed_prolongator(Ah, S, P_hat, seed=seed)
+        with stage("sa.galerkin"):
+            Ac = (P.T @ Ah @ P).tocsr()
+            Ac.sum_duplicates()
+            Ac.sort_indices()
+        with stage("sa.to_device"):
+            P = P.tocsr()
+            P.sum_duplicates()
+            P.sort_indices()
+            Pc = P.tocoo()
+            As.append(current)
+            Ps.append(SparseOperator.from_coo(Pc.row, Pc.col, Pc.data,
+                                              P.shape, dtype=dtype,
+                                              coalesce=False, device=device))
+            diags.append(_host_diag(current) if d is None
+                         else torch.as_tensor(d, device=device).reshape(-1))
+            d = None
+            Acc = Ac.tocoo()
+            current = SparseOperator.from_coo(Acc.row, Acc.col, Acc.data,
+                                              Ac.shape, dtype=dtype,
+                                              coalesce=False, device=device)
     As.append(current)
-    diags.append(_host_diag(current))
-    c, dd = _coarse_interval(current)
+    with stage("sa.to_device"):
+        diags.append(_host_diag(current))
+    with stage("sa.coarse_interval"):
+        c, dd = _coarse_interval(current)
     return MultigridSetup(As=tuple(As), Ps=tuple(Ps), diags=tuple(diags),
                           coarse_c=c, coarse_d=dd)
 
@@ -162,7 +174,9 @@ def setup_with_dia_multigrid(setup: MultigridSetup, max_offsets: int = 512,
     (`to_dia` refuses more than `max_offsets` diagonals; such a level
     keeps COO). `kernel=True` additionally puts each DIA level on kernel
     K1 (`DiaKernelOperator`), as `setup_with_dia(kernel=True)` does for
-    the two-grid setup. Prolongations stay COO (rectangular)."""
+    the two-grid setup. Prolongations stay COO (rectangular). Each
+    level's layout is the stage `dia.layout`."""
+    @stage("dia.layout")
     def try_dia(op):
         if isinstance(op, SparseOperator):
             try:
@@ -185,26 +199,30 @@ def multigrid_cycle(setup: MultigridSetup, b: torch.Tensor, x: torch.Tensor,
     """One multilevel cycle (gamma=1: V-cycle, gamma=2: W-cycle): Jacobi
     pre-smoothing, gamma coarse corrections (restrict the residual with
     P^T, recurse from zero, prolong), Jacobi post-smoothing; the coarsest
-    level is a degree-`coarse_deg` Chebyshev solve."""
+    level is a degree-`coarse_deg` Chebyshev solve. The cycle is the span
+    `mg.cycle`, each visit of level l the span `mg.level<l>` (inclusive
+    of the deeper levels; `utils/program.py`)."""
     b, x = b.reshape(-1), x.reshape(-1)
     L = setup.n_levels
     coarse_c = setup.coarse_c if coarse_c is None else coarse_c
     coarse_d = setup.coarse_d if coarse_d is None else coarse_d
 
     def cycle(level, b, x):
-        A, d = setup.As[level], setup.diags[level]
-        if level == L - 1:
-            return chebyshev(A, b, x, c=coarse_c, d=coarse_d,
-                             deg=coarse_deg)
-        x = jacobi(A, b, x, omega=omega, n_iters=n_pre, diag=d)
-        P = setup.Ps[level]
-        for _ in range(gamma):
-            rc = P.rmatvec(residual(A, b, x))
-            xc = cycle(level + 1, rc, torch.zeros_like(rc))
-            x = x + P.matvec(xc)
-        return jacobi(A, b, x, omega=omega, n_iters=n_post, diag=d)
+        with span("mg.level", level):
+            A, d = setup.As[level], setup.diags[level]
+            if level == L - 1:
+                return chebyshev(A, b, x, c=coarse_c, d=coarse_d,
+                                 deg=coarse_deg)
+            x = jacobi(A, b, x, omega=omega, n_iters=n_pre, diag=d)
+            P = setup.Ps[level]
+            for _ in range(gamma):
+                rc = P.rmatvec(residual(A, b, x))
+                xc = cycle(level + 1, rc, torch.zeros_like(rc))
+                x = x + P.matvec(xc)
+            return jacobi(A, b, x, omega=omega, n_iters=n_post, diag=d)
 
-    return cycle(0, b, x)
+    with span("mg.cycle"):
+        return cycle(0, b, x)
 
 
 def multigrid_solve(setup: MultigridSetup, b: torch.Tensor, x: torch.Tensor,

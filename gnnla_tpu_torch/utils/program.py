@@ -50,15 +50,42 @@ Before each replay every guard is read; on a mismatch the program warms
 up again, which rebuilds the layout as an eager call would (and counts it
 in the wrapper's `rebuilds`), and captures anew. A stale layout is never
 replayed.
+
+Spans. `span(name)` marks a part of the hot path (a solve, a cycle, a
+level, a program's host steps, K1's enqueue); it is on only while a torch
+profiler records (`torch.autograd.profiler._is_profiler_enabled`), and
+off it costs one flag test and allocates nothing. On, outside a capture,
+a span is a profiler range "gnnla.<name>" (the fast form of
+`record_function`) and a host-clock pair; inside a capture it records a
+pair of timing events on the capture stream, which become event nodes of
+the graph. A traced replay reads their elapsed times while the graph
+runs, each span as soon as its end event has completed (the span
+`program.collect`), and returns when the replay has finished. A host-only
+span (`span_begin(name, host_only=True)`) records nothing inside a
+capture. `stage(name)` marks a set-up step: it is always timed by the
+host clock, and is a profiler range too while one records. Both add into
+one registry in memory, keyed by name: calls and host seconds, device
+calls, device seconds and self device seconds (less the child spans),
+and the parent span's name; `report()` reads it and `reset()` empties
+it. The `gnnla.*` ranges reach a Chrome trace through any
+`torch.profiler` run (`utils/metrics.profile_trace`).
+
+The cache key holds whether a profiler records. While none does a program
+replays its plain graph, which holds no event node; its first call while
+one records warms up and captures an instrumented graph once (counted in
+`captures`), and later calls while none records replay the plain graph
+again, with no capture.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, Callable, Dict, List, Tuple
+from time import perf_counter
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _profiler
 
 # the capture running in this context, None outside one; and whether a
 # program's warm-up or capture is running (a program inside one is its fn)
@@ -69,14 +96,31 @@ _INSIDE: contextvars.ContextVar = contextvars.ContextVar(
 _VALUE_TYPES = (type(None), bool, int, float, complex, str, torch.dtype,
                 torch.device)
 
+PREFIX = "gnnla."  # the spans' and stages' names in a profiler's trace
+# the names of the host spans and stages open in this context, innermost last
+_OPEN: contextvars.ContextVar = contextvars.ContextVar(
+    "gnnla_open_spans", default=())
+# name -> [calls, host s, device calls, device s, self device s, parent]
+_STATS: Dict[str, list] = {}
+_OFF = contextlib.nullcontext()
+# a profiler range without the dispatcher's op call: ~1.5 us a span under
+# a profiler, where `record_function` takes ~13 us
+_RANGE = torch._C._profiler._RecordFunctionFast
+
 
 class _Record:
     """What one capture records: the counters' increments (by object and
-    attribute) and the guards (read function -> key at capture)."""
+    attribute), the guards (read function -> key at capture), and the
+    device spans ([name, index of the parent span or -1, start event, end
+    event], in the order they opened; `closed` their indices in the order
+    they closed)."""
 
     def __init__(self):
         self.counts: Dict[Tuple[int, str], list] = {}
         self.guards: Dict[Callable[[], Any], Any] = {}
+        self.spans: List[list] = []
+        self.open: List[int] = []
+        self.closed: List[int] = []
 
     def apply(self) -> None:
         for obj, attr, k in self.counts.values():
@@ -104,6 +148,138 @@ def guard(read: Callable[[], Any], key) -> None:
     rec = _CAPTURE.get()
     if rec is not None:
         rec.guards.setdefault(read, key)
+
+
+def _stat(name: str, parent: Optional[str]) -> list:
+    entry = _STATS.get(name)
+    if entry is None:
+        entry = _STATS[name] = [0, 0.0, 0, 0.0, 0.0, parent]
+    entry[5] = parent
+    return entry
+
+
+def span_begin(name: str, host_only: bool = False):
+    """Open span `name`, for a caller that has found a profiler recording
+    (`torch.autograd.profiler._is_profiler_enabled`): the form of `span`
+    with no context-manager object. Returns what `span_end` closes; inside
+    a capture a device span records its start event there, and a
+    host-only span records nothing (None)."""
+    rec = _CAPTURE.get()
+    if rec is not None:
+        if host_only:
+            return None
+        start = torch.cuda.Event(enable_timing=True, external=True)
+        start.record()
+        rec.spans.append([name, rec.open[-1] if rec.open else -1, start,
+                          None])
+        rec.open.append(len(rec.spans) - 1)
+        return rec
+    return _host_begin(name, True)
+
+
+def span_end(state) -> None:
+    """Close what `span_begin` opened; nothing for None."""
+    if state is None:
+        return
+    if isinstance(state, _Record):
+        end = torch.cuda.Event(enable_timing=True, external=True)
+        end.record()
+        i = state.open.pop()
+        state.spans[i][3] = end
+        state.closed.append(i)
+        return
+    _host_end(state)
+
+
+def _host_begin(name: str, traced: bool):
+    outer = _OPEN.get()
+    token = _OPEN.set(outer + (name,))
+    rf = None
+    if traced:
+        rf = _RANGE(PREFIX + name)
+        rf.__enter__()
+    return name, outer[-1] if outer else None, token, rf, perf_counter()
+
+
+def _host_end(state) -> None:
+    name, parent, token, rf, t0 = state
+    dt = perf_counter() - t0
+    if rf is not None:
+        rf.__exit__(None, None, None)
+    _OPEN.reset(token)
+    entry = _stat(name, parent)
+    entry[0] += 1
+    entry[1] += dt
+
+
+class _Span:
+    __slots__ = ("name", "state")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.state = span_begin(self.name)
+
+    def __exit__(self, *exc):
+        span_end(self.state)
+
+
+def span(name: str, index: Optional[int] = None):
+    """A span of the hot path (see the module doc), named `name`, or
+    `name` followed by `index`: a context manager, the shared null one
+    while no profiler records."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name if index is None else f"{name}{index}")
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """A set-up step, timed by the host clock into the registry (and a
+    profiler range while a profiler records). Never on a per-solve or
+    per-apply path."""
+    state = _host_begin(name, _profiler._is_profiler_enabled)
+    try:
+        yield
+    finally:
+        _host_end(state)
+
+
+def _read(rec: _Record) -> None:
+    """Add a replay's device spans to the registry: the elapsed time of
+    each, read as soon as its end event has completed (in the order the
+    spans closed, so the reading overlaps the replay), and its self time
+    (less its children's)."""
+    ms = [0.0] * len(rec.spans)
+    for i in rec.closed:
+        _, _, start, end = rec.spans[i]
+        end.synchronize()
+        ms[i] = start.elapsed_time(end)
+    inner = [0.0] * len(ms)
+    for (_, parent, _, _), t in zip(rec.spans, ms):
+        if parent >= 0:
+            inner[parent] += t
+    for (name, parent, _, _), t, t_in in zip(rec.spans, ms, inner):
+        entry = _stat(name, rec.spans[parent][0] if parent >= 0 else None)
+        entry[2] += 1
+        entry[3] += 1e-3 * t
+        entry[4] += 1e-3 * (t - t_in)
+
+
+def report() -> Dict[str, dict]:
+    """The registry: for each span or stage name, `calls` and `host_s`
+    (host clock, outside captures), `device_calls`, `device_s` and
+    `self_device_s` (a graph's replays), and `parent` (the enclosing
+    span's name, as last seen)."""
+    keys = ("calls", "host_s", "device_calls", "device_s", "self_device_s",
+            "parent")
+    return {name: dict(zip(keys, entry)) for name, entry in _STATS.items()}
+
+
+def reset() -> None:
+    """Empty the registry."""
+    _STATS.clear()
 
 
 @contextlib.contextmanager
@@ -161,10 +337,30 @@ class _Graph:
         self.record.apply()
         return _clone(self.out)
 
+    def replay_traced(self, tensors):
+        """`replay` with each host step a span, and the replay's device
+        spans read as it runs (it has finished on return)."""
+        with _Span("program.inputs"):
+            for buf, t in zip(self.inputs, tensors):
+                buf.copy_(t)
+        with _Span("program.launch"):
+            self.graph.replay()
+        with _Span("program.outputs"):
+            self.record.apply()
+            out = _clone(self.out)
+        if self.record.spans:
+            with _Span("program.collect"):
+                _read(self.record)
+        return out
+
 
 class Program:
-    """`fn` as a program (see the module doc). `captures` counts the
-    captures made, recaptures included, and `replays` the replays."""
+    """`fn` as a program (see the module doc). `captures` counts every
+    capture: a new key's, a recapture after a guard's mismatch, and the
+    instrumented graph of the first call while a profiler records (the
+    key holds that flag); `replays` counts the replays. The call that
+    captures returns the result of its warm-up: so does the first call
+    with a key, and so does the first traced call."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
@@ -192,18 +388,29 @@ class Program:
                     "a program runs without autograd: an input requires "
                     "grad; the trainers' jitted steps are programs of a "
                     "later slice of the port")
-            key = (tuple((a.shape, a.dtype, a.device) if i in idx
-                         else _static_key(a) for i, a in enumerate(args)),
-                   tuple(sorted((k, _static_key(v))
-                                for k, v in kwargs.items())))
-            g = self._graphs.get(key)
-            if g is not None and g.record.holds():
+            traced = _profiler._is_profiler_enabled
+            state = span_begin("program.lookup") if traced else None
+            try:
+                key = (traced,
+                       tuple((a.shape, a.dtype, a.device) if i in idx
+                             else _static_key(a)
+                             for i, a in enumerate(args)),
+                       tuple(sorted((k, _static_key(v))
+                                    for k, v in kwargs.items())))
+                g = self._graphs.get(key)
+                hit = g is not None and g.record.holds()
+            finally:
+                span_end(state)
+            if hit:
                 self.replays += 1
-                return g.replay([args[i] for i in idx])
+                tensors = [args[i] for i in idx]
+                return (g.replay_traced(tensors) if traced
+                        else g.replay(tensors))
             out = self._warm_up(dev, args, kwargs)
             self._graphs[key] = self._capture(args, kwargs, idx)
             return out
 
+    @stage("program.warmup")
     def _warm_up(self, dev, args, kwargs):
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -219,6 +426,7 @@ class Program:
             t.record_stream(cur)
         return out
 
+    @stage("program.capture")
     def _capture(self, args, kwargs, idx) -> _Graph:
         inputs = [args[i].detach().clone() for i in idx]
         call = list(args)

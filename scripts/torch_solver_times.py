@@ -109,7 +109,8 @@ def main() -> int:
                     getattr(ev, "self_cuda_time_total", 0.0))
             for ev in prof.key_averages()
             if getattr(ev, "device_type", None)
-            == torch.autograd.DeviceType.CUDA)
+            == torch.autograd.DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False))
         return total / 3e3
 
     def stats(v):

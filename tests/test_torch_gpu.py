@@ -1657,3 +1657,169 @@ def test_a_failing_capture_raises(cuda):
                        capture_output=True, text=True, timeout=120)
     # torch raises its AcceleratorError, a RuntimeError
     assert p.stdout.strip() == "raised", (p.stdout, p.stderr[-2000:])
+
+
+# ------------------------------------------------------------------ spans
+def _sa_solve(dev, seed):
+    """The SA hierarchy of the 64^2 Laplacian with K1 on its banded
+    levels, a right-hand side, x0 and the solve's options."""
+    from gnnla_tpu_torch.models.multigrid import (setup_sa_multigrid,
+                                                  setup_with_dia_multigrid)
+    from gnnla_tpu_torch.problems import laplacian_2d
+
+    A = laplacian_2d(64, device=dev).eliminate_zeros()
+    mg = setup_with_dia_multigrid(setup_sa_multigrid(A), kernel=True)
+    b = _rand(A.n_rows, seed, dev)
+    return mg, b, torch.zeros_like(b), {"n_iters": 4, "flip_sign": True}
+
+
+def _profiling():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _device_entries(report):
+    return {k: (v["device_calls"], v["device_s"]) for k, v in report.items()
+            if v["device_calls"]}
+
+
+def test_a_graph_captured_untraced_holds_no_device_span(cuda):
+    """Captured while no profiler records, the solve's graph records no
+    timing event, and its replays leave the registry's device entries as
+    they were."""
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.utils import program as prog
+
+    mg, b, x0, kw = _sa_solve(cuda, 6)
+    run = prog.program(mg_pcg)
+    prog.reset()
+    run(mg, b, x0, **kw)
+    before = _device_entries(prog.report())
+    for _ in range(3):
+        run(mg, b, x0, **kw)
+    (g,) = run._graphs.values()
+    assert g.record.spans == [] and g.record.closed == []
+    assert _device_entries(prog.report()) == before == {}
+    assert (run.captures, run.replays) == (1, 3)
+
+
+def test_the_first_traced_call_captures_once_and_untraced_calls_replay(
+        cuda):
+    """The first call while a profiler records captures an instrumented
+    graph (one more capture, the warm-up's result returned); the next
+    traced call replays it; a call after the profiler stops replays the
+    plain graph with no capture. All three match the eager solve."""
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.utils import program as prog
+
+    mg, b, x0, kw = _sa_solve(cuda, 7)
+    want = mg_pcg(mg, b, x0, **kw)[0]
+    run = prog.program(mg_pcg)
+    prog.reset()
+    run(mg, b, x0, **kw)
+    with _profiling():
+        first = run(mg, b, x0, **kw)[0]
+        assert (run.captures, run.replays) == (2, 0)
+        second = run(mg, b, x0, **kw)[0]
+        assert (run.captures, run.replays) == (2, 1)
+    third = run(mg, b, x0, **kw)[0]
+    assert (run.captures, run.replays) == (2, 2)
+    for y in (first, second, third):
+        _close(y, want)
+    assert sum(1 for g in run._graphs.values() if g.record.spans) == 1
+    rep = prog.report()
+    assert rep["pcg"]["device_calls"] == 1
+    assert rep["program.capture"]["calls"] == 2
+
+
+def test_device_spans_of_a_replayed_solve_add_up_to_its_pcg_span(cuda):
+    """Over replays of the instrumented solve, the self times of every
+    device span add up to the `pcg` span within 1%; each level's own time
+    is positive, each level lies inside the one above it, and the `pcg`
+    span inside the replay's device time."""
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.utils import program as prog
+
+    mg, b, x0, kw = _sa_solve(cuda, 8)
+    run = prog.program(mg_pcg)
+    prog.reset()
+    n = 5
+    with _profiling():
+        run(mg, b, x0, **kw)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        ms = 0.0
+        for _ in range(n):
+            t0.record()
+            run(mg, b, x0, **kw)
+            t1.record()
+            torch.cuda.synchronize()
+            ms += t0.elapsed_time(t1)
+    rep = prog.report()
+    dev = {k: v for k, v in rep.items() if v["device_calls"]}
+    L = mg.n_levels
+    assert set(dev) == {"pcg", "mg.cycle"} | {f"mg.level{lvl}"
+                                               for lvl in range(L)}
+    pcg = dev["pcg"]
+    assert pcg["device_calls"] == n
+    assert dev["mg.cycle"]["device_calls"] == n * (kw["n_iters"] + 1)
+    total = sum(v["self_device_s"] for v in dev.values())
+    assert abs(total - pcg["device_s"]) <= 0.01 * pcg["device_s"]
+    assert pcg["device_s"] * 1e3 <= ms
+    assert dev["mg.level0"]["parent"] == "mg.cycle"
+    assert dev["mg.cycle"]["parent"] == "pcg" and pcg["parent"] is None
+    for lvl in range(L):
+        assert dev[f"mg.level{lvl}"]["self_device_s"] > 0
+        if lvl:
+            assert dev[f"mg.level{lvl}"]["parent"] == f"mg.level{lvl - 1}"
+            assert dev[f"mg.level{lvl}"]["device_s"] < \
+                dev[f"mg.level{lvl - 1}"]["device_s"]
+
+
+def test_a_guard_mismatch_while_traced_recaptures(cuda):
+    """An in-place update of the fine K1 diagonals while a profiler
+    records makes the next traced call capture anew (one rebuild), and it
+    matches the eager solve."""
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+    from gnnla_tpu_torch.utils import program as prog
+
+    mg, b, x0, kw = _sa_solve(cuda, 9)
+    op = mg.As[0]
+    assert isinstance(op, DiaKernelOperator)
+    run = prog.program(mg_pcg)
+    with _profiling():
+        run(mg, b, x0, **kw)
+        run(mg, b, x0, **kw)
+        assert (run.captures, run.replays) == (1, 1)
+        with torch.no_grad():
+            op.diags.mul_(1.0)
+        y = run(mg, b, x0, **kw)[0]
+        assert (run.captures, run.replays, op.rebuilds) == (2, 1, 1)
+        z = run(mg, b, x0, **kw)[0]
+        assert run.replays == 2
+    want = mg_pcg(mg, b, x0, **kw)[0]
+    _close(y, want)
+    _close(z, want)
+
+
+def test_k1_enqueue_is_a_host_span_only_outside_a_capture(cuda):
+    """Eager K1 applies while a profiler records add one `k1.launch` call
+    each; captured inside a program they record no device span."""
+    from gnnla_tpu_torch.utils import program as prog
+
+    _, fast = _fast(64, cuda)
+    x = _rand(fast.A.n_rows, 10, cuda)
+    prog.reset()
+    fast.A.matvec(x)
+    assert "k1.launch" not in prog.report()
+    run = prog.program(lambda v: fast.A.matvec(v))
+    with _profiling():
+        for _ in range(3):
+            fast.A.matvec(x)
+        run(x)
+        run(x)
+    rep = prog.report()
+    # three eager applies and the warm-up's; none from the capture
+    assert rep["k1.launch"]["calls"] == 4
+    assert rep["k1.launch"]["device_calls"] == 0
