@@ -138,7 +138,8 @@ The multilevel hierarchies and the Krylov solvers:
                     K1, setup seconds, diagonal bytes; `mg_pcg(n_iters=30,
                     flip_sign=True)` on the main right-hand side reaches
                     1e-8 ||b|| in 15 +- 1 iterations (the JAX package's
-                    bench took 15), exact K1 launches per level, x within
+                    bench took 15), exact K1 launches per level and K2
+                    launches on each P (1 + 1 a cycle), x within
                     1e-4 of max|x| of the same hierarchy on plain DIA
                     levels, a 64^2 run within 2e-5 of the port's CPU path;
                     ms per iteration (median of 5 runs), idle share, peak
@@ -163,6 +164,16 @@ The multilevel hierarchies and the Krylov solvers:
                     the SA V-cycle (K1 levels, n_pre = n_post = 2, 8
                     cycles): SA below classical, each within 0.01 of the
                     JAX package's table (BENCH_r05.json).
+ 22b. sa_k2      — the benchmark's solve hierarchies (SA, theta 0.08, seed
+                    0, of the 128^3 and 2048^2 FD Laplacians) through
+                    `setup_with_dia_multigrid(kernel=True)`: no COO operator
+                    left, exact K2 launches in one V(1,1) cycle (3 on a
+                    level `to_dia` refused, 8 at such a coarsest, 1 + 1 on
+                    each P); 3-D A1, A2, P0, P0^T, P1^T and 2-D P0, P0^T:
+                    K2 against its plain version and cuSPARSE, flushed,
+                    plain, COO-operator and cuSPARSE times beside the bound,
+                    and the share of rows and nonzeros in long rows (a
+                    `csr_spmv[SA<grid>.<key>]` row each).
 The GN-block engine and the paper's GN forms, held against the kernels:
  23. gn_setup     — `setup_twogrid(use_device_gnn=True)` on phase 3's
                     operator (SOC and direct interpolation as GN blocks on
@@ -506,10 +517,10 @@ from gnnla_tpu_torch.ops.stencil_kernel import (TILES, StencilCall,
                                                 stencil_launches, tile_form)
 from gnnla_tpu_torch.ops.stream_op import (RectStreamOperator,
                                            StreamOperator, csr_pair)
-from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, csr_spmv_cuda,
-                                             csr_spmv_plain, entry_rows,
-                                             rcm_csr)
-from gnnla_tpu_torch.problems import laplacian_2d
+from gnnla_tpu_torch.ops.stream_spmv import (LONG_ROW, CsrSpMV,
+                                             csr_spmv_cuda, csr_spmv_plain,
+                                             entry_rows, rcm_csr)
+from gnnla_tpu_torch.problems import laplacian_2d, laplacian_nd
 from gnnla_tpu_torch.problems.small_band import small_band_matrix_host
 from gnnla_tpu_torch.ops.ellw_spmv import ELLW_SMEM_BYTES, ellw_cuda
 from gnnla_tpu_torch.ops.gather_probe import (GatherProbe, axis0_cuda,
@@ -1963,11 +1974,17 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
 
     for a in on_k1.values():
         a.launches = 0
+    require(all(isinstance(p, RectStreamOperator) for p in mg.Ps),
+            [type(p) for p in mg.Ps])
+    for p in mg.Ps:
+        p.fwd.launches = p.bwd.launches = 0
     x, hist = mg_pcg(mg, b, x0, n_iters=PCG_ITERS, flip_sign=True)
     torch.cuda.synchronize()
     got = {lvl: a.launches for lvl, a in on_k1.items()}
     want = {lvl: want_launches(lvl) for lvl in on_k1}
     require(got == want, (got, want))
+    p_launches = [(p.fwd.launches, p.bwd.launches) for p in mg.Ps]
+    require(p_launches == [(cycles, cycles)] * (L - 1), p_launches)
     rel_hist = hist.cpu().numpy() / bnorm
     conv = np.flatnonzero(rel_hist < 1e-8)
     require(conv.size > 0, f"no 1e-8 in {PCG_ITERS} iterations: {rel_hist}")
@@ -2063,6 +2080,7 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
               pcg_iters=PCG_ITERS, rel_residual_history=rel_hist.tolist(),
               iters_to_1e8=iters, jax_iters_to_1e8=ref["pcg_iters_to_1e8"],
               true_rel_residual=true_rel, k1_launches=got,
+              k2_p_launches=p_launches,
               k1_rebuilds=rebuilds,
               rel_err_vs_plain_dia_levels=rel, rel_err_64sq_vs_cpu=rel_small,
               ms_per_iter=ms_iter, ms_to_1e8=ms_iter * iters,
@@ -2141,6 +2159,90 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
                            sa_levels_on_k1=[isinstance(a, DiaKernelOperator)
                                             for a in sa_s.As])
     emit(dict(phase="convergence", cycles=8, table=table))
+    return rows_out
+
+
+# the operators of the solve cells' SA hierarchies that run on K2, keyed
+# "A<l>" (a level `to_dia` refused), "P<l>" and "P<l>T"
+SA_K2_SHAPES = (("3d", (128, 128, 128), ("A1", "A2", "P0", "P0T", "P1T")),
+                ("2d", (2048, 2048), ("P0", "P0T")))
+
+
+def sa_k2_phase(lib, flush, smi) -> list:
+    """Phase 22b: K2 at the shapes the benchmark's solve cells run on it —
+    the SA hierarchies (theta 0.08, seed 0) of the 128^3 and 2048^2 FD
+    Laplacians through `setup_with_dia_multigrid(kernel=True)`: no COO
+    operator left, each twin's launches in one V(1,1) cycle (3 on a K2
+    level, 8 at a K2 coarsest, 1 + 1 on each P), and per shape of
+    SA_K2_SHAPES the kernel against its plain version, its flushed time,
+    the bound, the plain version's, the COO operator's it replaced and
+    cuSPARSE's (a `csr_spmv[SA<grid>.<key>]` row each), with the share of
+    rows and of nonzeros in rows a whole CUDA block sums."""
+    dev = torch.device("cuda")
+    rows_out, summary = [], {}
+    for tag, grid, keys in SA_K2_SHAPES:
+        A = laplacian_nd(grid, device=dev)[0]
+        sa = setup_sa_multigrid(A, theta=0.08, seed=0)
+        t0 = time.perf_counter()
+        mg = setup_with_dia_multigrid(sa, kernel=True)
+        t_swap = time.perf_counter() - t0
+        require(not any(isinstance(op, SparseOperator)
+                        for op in mg.As + mg.Ps), (tag, "COO left"))
+        twins = {}  # key -> (CsrSpMV, the COO apply it replaced, per cycle)
+        last = mg.n_levels - 1
+        for lvl, (a, a0) in enumerate(zip(mg.As, sa.As)):
+            if isinstance(a, StreamOperator):
+                twins[f"A{lvl}"] = (a.fwd, a0.matvec, 8 if lvl == last else 3)
+        for lvl, (p, p0) in enumerate(zip(mg.Ps, sa.Ps)):
+            twins[f"P{lvl}"] = (p.fwd, p0.matvec, 1)
+            twins[f"P{lvl}T"] = (p.bwd, p0.rmatvec, 1)
+        for csr, _, _ in twins.values():
+            csr.launches = 0
+        b = torch.ones(A.n_rows, device=dev)
+        multigrid_cycle(mg, b, torch.zeros_like(b), n_pre=1, n_post=1)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, (c, _, _) in twins.items()}
+        want = {k: n for k, (_, _, n) in twins.items()}
+        require(got == want, (tag, got, want))
+        gen = np.random.default_rng(41)
+        for key in keys:
+            csr, coo, per_cycle = twins[key]
+            x = torch.from_numpy(gen.standard_normal(csr.shape[1]).astype(
+                np.float32)).to(dev)
+            y = csr(x)
+            err = compare(y, csr.plain(x), f"K2 on SA{tag}.{key}")
+            lib_mat = csr_tensor(csr)
+            compare(lib_mat @ x, y, f"cuSPARSE yardstick of SA{tag}.{key}")
+            raw, bytes_moved, flops = csr_raw(lib, csr, x)
+            bound_ms, bound_by = bound(bytes_moved, flops)
+            lens = csr.row_ptr.diff()
+            long_ = lens > LONG_ROW
+            rows_out.append(dict(
+                name=f"csr_spmv[SA{tag}.{key}]", route="cuda",
+                source=K2_ROW[1], replaces=K2_ROW[2],
+                launches_per_cycle=per_cycle,
+                max_abs_err=err["max_abs_err"],
+                ms=cuda_ms_cold(raw, 20, flush),
+                plain_ms=cuda_ms_cold(lambda: csr.plain(x), 5, flush),
+                coo_ms=cuda_ms_cold(lambda: coo(x), 10, flush),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms_cold(lambda: lib_mat @ x, 20, flush),
+                rows=csr.shape[0], cols=csr.shape[1], nnz=csr.nnz,
+                long_row_share=float(long_.float().mean()),
+                long_nnz_share=float(lens[long_].sum()) / csr.nnz,
+                max_row=int(lens.max()), **k2_fields(csr)))
+            del lib_mat
+        summary[tag] = dict(
+            grid=list(grid), swap_s=t_swap, levels=[
+                dict(rows=a.n_rows, nnz=a.nnz, kind=type(a).__name__)
+                for a in mg.As], launches_per_cycle=got)
+        del A, sa, mg, twins
+        torch.cuda.empty_cache()
+    emit(dict(phase="sa_k2", hierarchies=summary,
+              rows=[{k: r[k] for k in ("name", "ms", "bound_ms", "plain_ms",
+                                        "coo_ms", "library_ms",
+                                        "long_row_share", "long_nnz_share")}
+                    for r in rows_out], nvidia_smi=smi))
     return rows_out
 
 
@@ -4337,6 +4439,7 @@ def main() -> int:
     kernels += stream_training(A_p, flush, smi)
     kernels += kernel_grads(A, plain, fast, flush, smi)
     kernels += multigrid_phases(A, plain, fast, b, flush, smi)
+    kernels += sa_k2_phase(lib, flush, smi)
     # K4's normalize mode runs on the GN phases' path (the power method)
     (norm_row,) = [r for r in k4_off_path
                    if r["name"] == "stencil[power_normalize]"]

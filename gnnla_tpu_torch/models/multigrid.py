@@ -12,13 +12,15 @@ package's `lax.scan`).
 
 Fast path: `setup_with_dia_multigrid(setup, kernel=True)` puts every level
 that `to_dia` accepts on kernel K1 (the DIA SpMV) — the function the JAX
-package's DIA levels compute in XLA. Prolongations stay COO, as in the
-JAX package (DIA is square-only).
+package's DIA levels compute in XLA — and every other level and every
+prolongation on kernel K2 (the CSR SpMV), where the JAX package keeps the
+COO gathers and scatter-adds that XLA runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -31,6 +33,8 @@ from gnnla_tpu_torch.models.vcycle import setup_twogrid
 from gnnla_tpu_torch.ops.dia import DIAOperator, to_dia
 from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
 from gnnla_tpu_torch.ops.sparse import SparseOperator
+from gnnla_tpu_torch.ops.stream_op import (rect_stream_operator,
+                                           stream_operator)
 from gnnla_tpu_torch.utils.program import span, stage
 
 
@@ -39,7 +43,7 @@ class MultigridSetup:
     """Hierarchy of fixed-pattern operators on one device.
 
     As    : operators per level (len L; finest first)
-    Ps    : prolongations between levels (len L-1)
+    Ps    : prolongations between levels (len L-1): COO, or K2 twins
     diags : smoother diagonals per level (len L; level 0 may be a trained
             Jacobi diagonal)
     coarse_c, coarse_d : the coarsest Chebyshev interval, from the
@@ -48,7 +52,7 @@ class MultigridSetup:
     """
 
     As: Tuple[Any, ...]
-    Ps: Tuple[SparseOperator, ...]
+    Ps: Tuple[Any, ...]
     diags: Tuple[torch.Tensor, ...]
     coarse_c: float = -3.4
     coarse_d: float = -4.0
@@ -172,10 +176,14 @@ def setup_with_dia_multigrid(setup: MultigridSetup, max_offsets: int = 512,
                              kernel: bool = False) -> MultigridSetup:
     """Swap every level's operator for its DIA twin when banded enough
     (`to_dia` refuses more than `max_offsets` diagonals; such a level
-    keeps COO). `kernel=True` additionally puts each DIA level on kernel
-    K1 (`DiaKernelOperator`), as `setup_with_dia(kernel=True)` does for
-    the two-grid setup. Prolongations stay COO (rectangular). Each
-    level's layout is the stage `dia.layout`."""
+    keeps COO). `kernel=True` puts each DIA level on kernel K1
+    (`DiaKernelOperator`), as `setup_with_dia(kernel=True)` does for the
+    two-grid setup, and the rest on kernel K2 in their own order: each
+    level `to_dia` refused as a forward-only `StreamOperator` (the cycle
+    only applies A; no CSR of A^T is kept, so its rmatvec raises), each
+    prolongation as a `RectStreamOperator` (CSRs of P and P^T). Each
+    level's DIA layout is the stage `dia.layout`, each K2 twin's the
+    stage `k2.layout`."""
     @stage("dia.layout")
     def try_dia(op):
         if isinstance(op, SparseOperator):
@@ -187,8 +195,21 @@ def setup_with_dia_multigrid(setup: MultigridSetup, max_offsets: int = 512,
             op = dia_kernel_operator(op)
         return op
 
-    return dataclasses.replace(setup,
-                               As=tuple(try_dia(a) for a in setup.As))
+    @stage("k2.layout")
+    def on_k2(twin, op):
+        return twin(op)
+
+    def swap(twin, ops):
+        return tuple(on_k2(twin, op) if isinstance(op, SparseOperator)
+                     else op for op in ops)
+
+    As = tuple(try_dia(a) for a in setup.As)
+    if not kernel:
+        return dataclasses.replace(setup, As=As)
+    return dataclasses.replace(
+        setup, As=swap(functools.partial(stream_operator, reorder=False,
+                                         transpose=False), As),
+        Ps=swap(lambda p: rect_stream_operator(p, p.n_cols), setup.Ps))
 
 
 def multigrid_cycle(setup: MultigridSetup, b: torch.Tensor, x: torch.Tensor,

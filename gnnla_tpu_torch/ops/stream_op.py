@@ -12,10 +12,12 @@ do; each direction's gradient in the vector runs K2 on the other CSR.
 (`stream_spmv.rcm_csr`), which bounds the column windows the JAX packer
 tests, and gathers caller-order vectors into kernel order and back
 (`perm`/`iperm`), as the JAX package does; `reorder=False` keeps the
-caller's order. The JAX package's square embedding of a rectangular P
-was a device of the TPU pack; K2 takes the rectangular CSR directly. The
-embedding still decides which patterns are refused, so both packages take
-the same layout.
+caller's order. `transpose=False` keeps only the CSR of A: the multilevel
+cycle applies its levels forward only, and a stored A^T of the largest
+such level would cost as much device memory as A. The JAX package's
+square embedding of a rectangular P was a device of the TPU pack; K2
+takes the rectangular CSR directly. The embedding still decides which
+patterns are refused, so both packages take the same layout.
 """
 
 from __future__ import annotations
@@ -65,11 +67,14 @@ def _host_csr(op: SparseOperator, shape: Tuple[int, int]):
 class StreamOperator:
     """Square sparse operator on kernel K2 (matvec, rmatvec, diagonal).
 
-    fwd / bwd    : K2 on the kernel-order CSR of A and of A^T
+    fwd / bwd    : K2 on the kernel-order CSR of A and of A^T; bwd None for
+                   a forward-only operator, whose rmatvec and gradient in x
+                   raise
     perm / iperm : caller order <-> kernel (RCM) order gathers, or None
     diag         : [n] diagonal in caller order"""
 
-    def __init__(self, fwd: CsrSpMV, bwd: CsrSpMV, diag: torch.Tensor,
+    def __init__(self, fwd: CsrSpMV, bwd: Optional[CsrSpMV],
+                 diag: torch.Tensor,
                  perm: Optional[torch.Tensor] = None,
                  iperm: Optional[torch.Tensor] = None):
         self.fwd = fwd
@@ -102,6 +107,10 @@ class StreamOperator:
 
     def rmatvec(self, y: torch.Tensor) -> torch.Tensor:
         """A^T y (K2 on the transposed CSR; B^T = P A^T P^T)."""
+        if self.bwd is None:
+            raise ValueError("rmatvec: this stream operator was built "
+                             "forward-only (transpose=False) and holds no "
+                             "CSR of A^T")
         _vector(y, self.n_rows, "rmatvec")
         return self._apply(self.bwd, y)
 
@@ -158,14 +167,15 @@ def rect_stream_operator(op: SparseOperator,
     return RectStreamOperator(fwd, bwd)
 
 
-def stream_operator(op: SparseOperator, *,
-                    reorder: bool = True) -> StreamOperator:
+def stream_operator(op: SparseOperator, *, reorder: bool = True,
+                    transpose: bool = True) -> StreamOperator:
     """Build a StreamOperator from a square SparseOperator (host setup).
 
     `reorder=True` packs the RCM-permuted operator (results stay in caller
     order through the perm/iperm gathers); `reorder=False` packs the
     caller's order, which must already have bounded column windows.
-    ValueError where the JAX packer refuses the packed pattern."""
+    `transpose=False` builds the CSR of A alone (no rmatvec, no gradient
+    in x). ValueError where the JAX packer refuses the packed pattern."""
     if op.shape[0] != op.shape[1]:
         raise ValueError("stream SpMV requires a square operator")
     A = _host_csr(op, op.shape)
@@ -175,7 +185,11 @@ def stream_operator(op: SparseOperator, *,
         perm = torch.from_numpy(p.astype(np.int64)).to(op.device)
         iperm = torch.from_numpy(np.argsort(p).astype(np.int64)).to(
             op.device)
-    fwd, bwd = csr_pair(A, op.device, width=op.n_rows)
+    if transpose:
+        fwd, bwd = csr_pair(A, op.device, width=op.n_rows)
+    else:
+        check_stream_pattern(A.indptr, A.indices, op.n_rows)
+        fwd, bwd = CsrSpMV(A, device=op.device), None
     diag = torch.from_numpy(op.host_diagonal().astype(np.float32)).to(
         op.device)
     return StreamOperator(fwd, bwd, diag, perm, iperm)

@@ -564,6 +564,55 @@ def test_mg_pcg_on_the_card(cuda):
     assert float(hist[-1]) < 1e-5 * float(np.linalg.norm(b))
 
 
+@pytest.mark.parametrize("max_offsets", [100, 18],
+                         ids=["coarsest_on_k1", "coarsest_on_k2"])
+def test_mg_pcg_on_k1_and_k2(cuda, max_offsets):
+    """SA mg_pcg on the 16^3 Laplacian with K1 on the levels within
+    `max_offsets` diagonals (7, 265, 147 and 19 at levels 0-3) and K2 on
+    the rest and on every P: no COO operator left, the CPU path's x
+    within 2e-5 (as on K1 alone: each level's sums in another order in
+    f32, carried through 10 iterations; K2 sums a row of more than 64
+    nonzeros by a block reduction), and exact launches per operator, one
+    cycle more than iterations: 3 a cycle on a K2 level (8 at the
+    coarsest), 1 + 1 on each P, K1's as in the test above."""
+    from gnnla_tpu_torch.models import (mg_pcg, setup_sa_multigrid,
+                                        setup_with_dia_multigrid)
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+    from gnnla_tpu_torch.ops.sparse import SparseOperator
+    from gnnla_tpu_torch.ops.stream_op import (RectStreamOperator,
+                                               StreamOperator)
+    from gnnla_tpu_torch.problems import laplacian_nd
+
+    b = np.random.default_rng(6).standard_normal(4096).astype(np.float32)
+    xs = {}
+    for dev in ("cpu", cuda):
+        A = laplacian_nd((16, 16, 16), device=dev)[0]
+        mg = setup_with_dia_multigrid(setup_sa_multigrid(A, seed=0),
+                                      max_offsets=max_offsets, kernel=True)
+        bb = torch.from_numpy(b).to(dev)
+        x, hist = mg_pcg(mg, bb, torch.zeros_like(bb), n_iters=10,
+                         flip_sign=True)
+        xs[str(dev)] = x.cpu()
+    torch.cuda.synchronize()
+    last = mg.n_levels - 1
+    on_k2 = [isinstance(a, StreamOperator) for a in mg.As]
+    assert [isinstance(a, DiaKernelOperator) for a in mg.As] == [
+        not k for k in on_k2]
+    assert on_k2[1] and on_k2[last] == (max_offsets == 18)
+    assert all(isinstance(p, RectStreamOperator) for p in mg.Ps)
+    assert not any(isinstance(op, SparseOperator) for op in mg.As + mg.Ps)
+    cycles = 11
+    for lvl, a in enumerate(mg.As):
+        per_cycle = 8 if lvl == last else 3 + (lvl == 0)
+        got = a.fwd.launches if on_k2[lvl] else a.launches
+        assert got == cycles * per_cycle, (lvl, got)
+    assert [(p.fwd.launches, p.bwd.launches) for p in mg.Ps] == [
+        (cycles, cycles)] * last
+    xc = xs["cpu"]
+    assert float((xs[str(cuda)] - xc).abs().max() / xc.abs().max()) < 2e-5
+    assert float(hist[-1]) < 1e-5 * float(np.linalg.norm(b))
+
+
 def test_amg_pcg_on_the_card(cuda):
     from gnnla_tpu_torch.models import amg_pcg
 

@@ -35,6 +35,7 @@ from gnnla_tpu_torch.amg import aggregation as ta
 from gnnla_tpu_torch.ops.dia import DIAOperator as TDia
 from gnnla_tpu_torch.ops.dia import to_dia
 from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+from gnnla_tpu_torch.ops.stream_op import RectStreamOperator, StreamOperator
 from gnnla_tpu_torch.problems import fem_heateqn as t_fem
 from gnnla_tpu_torch.problems import laplacian_2d as t_laplacian_2d
 
@@ -241,6 +242,58 @@ def test_dia_hierarchy_matches(case):
     assert_close(x_t, x_j)
     assert all(a.launches == 0 for a in k_t.As
                if isinstance(a, DiaKernelOperator))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_hierarchy_puts_the_rest_on_k2(case):
+    """kernel=True puts each level `to_dia` refuses and every P on kernel
+    K2 in their own order: a level as a forward-only StreamOperator (the
+    COO's CSR, no transpose kept, so rmatvec and x's gradient raise), a P
+    as a RectStreamOperator (CSRs of P and P^T); each applies as its COO
+    does, and mg_pcg on the hierarchy follows JAX's (whose levels and Ps
+    stay COO)."""
+    _, s_t = hierarchies("sa", case)
+    cap = max(len(to_dia(a, None).offsets) for a in s_t.As) - 1
+    k_t = tm.setup_with_dia_multigrid(s_t, max_offsets=cap, kernel=True)
+    refused = [not isinstance(a, DiaKernelOperator) for a in k_t.As]
+    assert any(refused) and not all(refused)
+    for a_k, a_t, off_k1 in zip(k_t.As, s_t.As, refused):
+        if not off_k1:
+            continue
+        assert isinstance(a_k, StreamOperator)
+        assert a_k.bwd is None and a_k.fwd.transpose is None
+        assert a_k.perm is None and a_k.iperm is None
+        np.testing.assert_array_equal(a_k.fwd.row_ptr.numpy(),
+                                      a_t.row_ptr.numpy())
+        np.testing.assert_array_equal(a_k.fwd.cols.numpy(), a_t.cols.numpy())
+        np.testing.assert_array_equal(a_k.fwd.vals.numpy(), a_t.vals.numpy())
+        np.testing.assert_array_equal(a_k.diagonal().numpy(),
+                                      a_t.diagonal().numpy())
+        x = torch.from_numpy(vec(a_t.n_rows, 8))
+        torch.testing.assert_close(a_k.matvec(x), a_t.matvec(x))
+        with pytest.raises(ValueError, match="forward-only"):
+            a_k.rmatvec(x)
+        y = a_k.matvec(x.clone().requires_grad_())
+        with pytest.raises(ValueError, match="gradient unavailable"):
+            y.sum().backward()
+    assert len(k_t.Ps) == len(s_t.Ps)
+    for p_k, p_t in zip(k_t.Ps, s_t.Ps):
+        assert isinstance(p_k, RectStreamOperator)
+        assert p_k.shape == p_t.shape
+        assert p_k.fwd.transpose is p_k.bwd and p_k.bwd.transpose is p_k.fwd
+        xc, xf = torch.from_numpy(vec(p_t.n_cols, 9)), torch.from_numpy(
+            vec(p_t.n_rows, 10))
+        torch.testing.assert_close(p_k.matvec(xc), p_t.matvec(xc))
+        torch.testing.assert_close(p_k.rmatvec(xf), p_t.rmatvec(xf))
+    x_j, h_j = jax_mg_pcg("sa", case)
+    n = s_t.As[0].n_rows
+    x_t, h_t = tk.mg_pcg(k_t, torch.from_numpy(vec(n, 6)), torch.zeros(n),
+                         n_iters=15, flip_sign=case == "lap32")
+    assert_history(h_t, h_j, vec(n, 6))
+    assert_close(x_t, x_j)
+    # the CPU runs K2's plain version: no launch counted
+    assert all(c.launches == 0 for p in k_t.Ps for c in (p.fwd, p.bwd))
+    assert all(a.fwd.launches == 0 for a, r in zip(k_t.As, refused) if r)
 
 
 # -------------------------------------------------------------- Krylov

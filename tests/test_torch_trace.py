@@ -161,7 +161,9 @@ def test_sa_stages_sum_to_no_more_than_the_set_up(hierarchy):
     """Every stage of `setup_sa_multigrid` is timed once a level (the
     coarsest's diagonal and interval once more), and together they take
     no longer than the set-up's wall time; `setup_with_dia_multigrid`
-    times one `dia.layout` a level."""
+    times one `dia.layout` a level and, with kernel=True, one `k2.layout`
+    a K2 twin (here each P: every level of the 64^2 hierarchy is on
+    K1)."""
     A, _, _ = hierarchy
     t0 = time.perf_counter()
     mg = setup_sa_multigrid(A)
@@ -176,6 +178,7 @@ def test_sa_stages_sum_to_no_more_than_the_set_up(hierarchy):
     assert all(v["parent"] is None for v in rep.values())
     setup_with_dia_multigrid(mg, kernel=True)
     assert prog.report()["dia.layout"]["calls"] == mg.n_levels
+    assert prog.report()["k2.layout"]["calls"] == steps
 
 
 def test_a_stage_is_a_profiler_range_while_one_records(hierarchy):
