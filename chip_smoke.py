@@ -41,8 +41,9 @@ Phases, one JSON line each on stdout:
 The grid path (kernel K4, the fused stencil) on the same 1024^2 operator:
   7. grid_setup   — the alternating setup, `GeometricVCycle(setup=...)` and
                     `AutoTwoGrid` on the CLJP setup of phase 3 (host
-                    seconds); asserts the auto layout is "stencil" with a
-                    plain DIA Ac and a COO P (no K1 or K2 launch).
+                    seconds); asserts the auto layout is "stencil" with
+                    Ac on K1 (`DiaKernelOperator`) and P on K2
+                    (`RectStreamOperator`).
   8. grid_kernels — K4 against its plain version on the card at the grid
                     path's shapes: plain on the 1024 x 512 Ac (one step),
                     affine Jacobi (3 steps) and residual (1 step) on 1024^2,
@@ -62,8 +63,11 @@ The grid path (kernel K4, the fused stencil) on the same 1024^2 operator:
                     setup on the plain COO path (1e-4 of max|x|); a 64^2
                     run matches the port's CPU path.
  10. auto         — 5 `AutoTwoGrid` (stencil) cycles: the residual falls
-                    every cycle; exactly 3 K4 launches per cycle; x matches
-                    phase 5's plain cycle (1e-4 of max|x|).
+                    every cycle; exactly 3 K4 launches per cycle, 4 K1
+                    launches on Ac and one K2 launch each for P^T and P;
+                    x matches phase 5's plain cycle (1e-4 of max|x|) and,
+                    within K1's tolerance (RTOL), the same stencil cycle
+                    with the plain DIA Ac and the COO P.
  11. grid_times   — ms/cycle of both (CUDA events over 20 warm cycles;
                     `run` replays a program, as in phases 9, 10 and 12); per
                     K4 shape the flushed and L2-warm times, plain time,
@@ -445,6 +449,8 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import gc
 import io
 import json
@@ -1007,10 +1013,11 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     t_auto = time.perf_counter() - t0
     require(auto.layout == "stencil", (auto.layout, auto.why))
     sv = auto._stencil
-    # Ac is the plain DIA twin and P the COO P: the stencil cycle launches
-    # no K1 or K2, as in the JAX package
-    require(type(sv.setup.Ac) is DIAOperator, type(sv.setup.Ac))
-    require(type(sv.setup.P) is SparseOperator, type(sv.setup.P))
+    # on the card the stencil leg's Ac (the DIA twin, its dense diagonals
+    # on the host) runs on K1 and its P on K2
+    require(type(sv.setup.Ac) is DiaKernelOperator, type(sv.setup.Ac))
+    require(sv.setup.Ac.diags.device.type == "cpu", sv.setup.Ac.diags.device)
+    require(type(sv.setup.P) is RectStreamOperator, type(sv.setup.P))
     SHARED.update(geo=geo, auto=auto)  # phase 55 runs both as programs
     ac_taps = geo._ac_call.taps
     emit(dict(phase="grid_setup", alternating_setup_s=t_alt,
@@ -1157,26 +1164,42 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
 
     # ------------------------------------------------------------ auto
     x = torch.zeros(n, device=dev)
-    a_calls = sv.kernel_calls()
-    for call in a_calls:
-        call.launches = 0
+    a_counted = {"jacobi_affine": sv._pre._call,
+                 "residual_affine": sv._res._call, "k1_Ac": sv.setup.Ac,
+                 "k2_Pt": sv.setup.P.bwd, "k2_P": sv.setup.P.fwd}
+    for obj in a_counted.values():
+        obj.launches = 0
     res_a = [float(torch.linalg.vector_norm(b - A.matvec(x)))]
     for _ in range(N_CYCLES):
         x = auto.run(b, x)
         res_a.append(float(torch.linalg.vector_norm(b - A.matvec(x))))
     torch.cuda.synchronize()
-    a_launches = {"jacobi_affine": sv._pre._call.launches,
-                  "residual_affine": sv._res._call.launches}
+    a_launches = {k: obj.launches for k, obj in a_counted.items()}
     require(all(r1 < r0 for r0, r1 in zip(res_a, res_a[1:])), res_a)
     require(a_launches == {"jacobi_affine": 2 * N_CYCLES,
-                           "residual_affine": N_CYCLES}, a_launches)
+                           "residual_affine": N_CYCLES,
+                           "k1_Ac": 4 * N_CYCLES, "k2_Pt": N_CYCLES,
+                           "k2_P": N_CYCLES}, a_launches)
     require(bool(torch.isfinite(x).all()), "auto x must be finite")
     rel_a = float((x - x_plain).abs().max() / x_plain.abs().max())
     require(rel_a <= 1e-4, rel_a)
+    # the same stencil cycle with the coarse correction on the plain path
+    # (plain DIA Ac, COO P): only K1's and K2's sum order differ
+    sv_plain = copy.copy(sv)
+    sv_plain.setup = dataclasses.replace(sv.setup, Ac=to_dia(auto.setup.Ac),
+                                         P=auto.setup.P)
+    x_leg = torch.zeros(n, device=dev)
+    for _ in range(N_CYCLES):
+        x_leg = sv_plain.cycle(b, x_leg)
+    leg_err = compare(x, x_leg, "the stencil leg's K1/K2 coarse "
+                      "correction against the plain one", rtol=RTOL)
     emit(dict(phase="auto", layout=auto.layout, cycles=N_CYCLES,
               residual_norms=res_a, launches=a_launches,
-              k4_launches_per_cycle=sum(a_launches.values()) // N_CYCLES,
-              rel_err_vs_plain_cycle=rel_a))
+              k4_launches_per_cycle=(a_launches["jacobi_affine"]
+                                     + a_launches["residual_affine"])
+              // N_CYCLES,
+              rel_err_vs_plain_cycle=rel_a,
+              vs_plain_coarse_path=dict(leg_err, rtol=RTOL)))
 
     # ------------------------------------------------------ grid_times
     x0 = torch.zeros(n, device=dev)
@@ -1185,7 +1208,7 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     ms_gen = cuda_ms(lambda: solve(alt, b, x0, n_cycles=1), iters=3,
                      warmup=1)
     xc = torch.zeros(sv.setup.Ac.n, device=dev)
-    ms_auto_ac = cuda_ms(lambda: sv.setup.Ac.matvec(xc), iters=5, warmup=1)
+    ms_auto_ac = cuda_ms(lambda: sv.setup.Ac.matvec(xc), iters=20)
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
     rows, off_path, warm, lib_errs, k4_ms_cycle = [], [], {}, {}, 0.0
@@ -1240,7 +1263,7 @@ def grid_path(A, plain, b, x_plain, flush, smi) -> list:
     emit(dict(phase="grid_times", ms_per_cycle_geometric=ms_geo,
               ms_per_cycle_auto_stencil=ms_auto,
               ms_per_cycle_generic_alternating_plain=ms_gen,
-              auto_plain_dia_Ac_apply_ms=ms_auto_ac,
+              auto_k1_Ac_apply_ms=ms_auto_ac,
               k4_flushed_ms_per_geometric_cycle=k4_ms_cycle,
               l2_warm=warm, off_main_path=off_path,
               library_vs_kernel=lib_errs,

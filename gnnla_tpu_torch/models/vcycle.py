@@ -16,7 +16,8 @@ order. Every solver only uses the matvec/rmatvec/diagonal protocol, so the
 same `vcycle` runs on any of them.
 
 Grid path: `StencilVCycle` runs the fine level of a cycle (pre-smoothing,
-residual, post-smoothing) on kernel K4, the fused stencil. `AutoTwoGrid` /
+residual, post-smoothing) on kernel K4, the fused stencil, and on the card
+Ac on K1 and P on K2. `AutoTwoGrid` /
 `setup_auto` pick the fastest layout an operator admits (stencil > dia >
 stream > coo); `models/geometric.py::GeometricVCycle` is the all-stencil
 semi-coarsened cycle.
@@ -24,6 +25,13 @@ semi-coarsened cycle.
 `setup_from_numpy` builds a setup from plain numpy arrays — the way a
 setup made elsewhere (for instance by the JAX package, or one carrying a
 trained Jacobi diagonal) is carried across.
+
+Tracing (`utils/program.py`): each step of `setup_twogrid` is a stage
+(`tg.strength`, `tg.split`, `tg.interp`, `tg.galerkin`), and so are
+`StencilVCycle`'s taps and layouts (`tg.taps`, `tg.layout`); a cycle is
+the span `tg.cycle`, and its parts the spans `tg.pre`, `tg.residual`,
+`tg.restrict`, `tg.coarse`, `tg.prolong` and `tg.post`, in `vcycle` and
+in `StencilVCycle.cycle` alike.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
                                                 make_stencil_residual)
 from gnnla_tpu_torch.ops.stream_op import (rect_stream_operator,
                                            stream_operator)
-from gnnla_tpu_torch.utils.program import program
+from gnnla_tpu_torch.utils.program import program, span, stage
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +138,8 @@ def setup_twogrid(A: SparseOperator, *, theta: float = 0.25,
                   trunc: float = 0.0,
                   interp: str = "reference") -> TwoGridSetup:
     """AMG setup on the host: SOC -> C/F split -> direct interpolation ->
-    Galerkin product. The operators land on A's device.
+    Galerkin product (the stages `tg.strength`, `tg.split`, `tg.interp`,
+    `tg.galerkin`). The operators land on A's device.
 
     `diag` substitutes a trained Jacobi diagonal for the smoother.
     interp="reference" is the reference formula, interp="signed" the
@@ -141,38 +150,41 @@ def setup_twogrid(A: SparseOperator, *, theta: float = 0.25,
     import scipy.sparse as sp
 
     device = A.device
-    A_nodiag = A.remove_diagonal()
-    diag_h = A.host_diagonal()
-    if diag is None:
-        a_diag = torch.from_numpy(diag_h).to(A.vals.dtype).to(device)
-    else:
-        a_diag = torch.as_tensor(diag, device=device).reshape(-1)
-    rows, cols, vals = A_nodiag.host_coo()
+    with stage("tg.strength"):
+        A_nodiag = A.remove_diagonal()
+        diag_h = A.host_diagonal()
+        if diag is None:
+            a_diag = torch.from_numpy(diag_h).to(A.vals.dtype).to(device)
+        else:
+            a_diag = torch.as_tensor(diag, device=device).reshape(-1)
+        rows, cols, vals = A_nodiag.host_coo()
+        if use_device_gnn:
+            strong = (soc_classic(A_nodiag, theta) > 0).cpu().numpy()
+        else:
+            strong = _soc_classic_host(rows, cols, vals, A.n_rows, theta)
+    with stage("tg.split"):
+        S_host = sp.coo_matrix(
+            (strong.astype(np.float64), (rows, cols)), shape=A.shape).tocsr()
+        coarse = split(S_host, method=splitting, seed=seed)
 
-    if use_device_gnn:
-        strong = (soc_classic(A_nodiag, theta) > 0).cpu().numpy()
-    else:
-        strong = _soc_classic_host(rows, cols, vals, A.n_rows, theta)
-    S_host = sp.coo_matrix(
-        (strong.astype(np.float64), (rows, cols)), shape=A.shape).tocsr()
-    coarse = split(S_host, method=splitting, seed=seed)
-
-    if use_device_gnn:
-        dtype = A.vals.dtype
-        w_ij = direct_interp(
-            A_nodiag, A.diagonal(),
-            torch.from_numpy(coarse).to(device=device, dtype=dtype),
-            torch.from_numpy(strong).to(device=device, dtype=dtype)
-        ).cpu().numpy()
-    else:
-        interp_fn = {"reference": _direct_interp_host,
-                     "signed": _direct_interp_host_signed}[interp]
-        w_ij = interp_fn(rows, cols, vals, diag_h,
-                         coarse.astype(np.float64),
-                         strong.astype(np.float64))
-    P = assemble_prolongation(A_nodiag, coarse, w_ij, dtype=A.vals.dtype,
-                              trunc=trunc)
-    Ac = galerkin_product(A, P)
+    with stage("tg.interp"):
+        if use_device_gnn:
+            dtype = A.vals.dtype
+            w_ij = direct_interp(
+                A_nodiag, A.diagonal(),
+                torch.from_numpy(coarse).to(device=device, dtype=dtype),
+                torch.from_numpy(strong).to(device=device, dtype=dtype)
+            ).cpu().numpy()
+        else:
+            interp_fn = {"reference": _direct_interp_host,
+                         "signed": _direct_interp_host_signed}[interp]
+            w_ij = interp_fn(rows, cols, vals, diag_h,
+                             coarse.astype(np.float64),
+                             strong.astype(np.float64))
+        P = assemble_prolongation(A_nodiag, coarse, w_ij,
+                                  dtype=A.vals.dtype, trunc=trunc)
+    with stage("tg.galerkin"):
+        Ac = galerkin_product(A, P)
     return TwoGridSetup(A=A, P=P, Ac=Ac, diag=a_diag,
                         coarse_flags=torch.from_numpy(coarse).to(device))
 
@@ -252,26 +264,58 @@ def setup_with_stream(setup: TwoGridSetup) -> TwoGridSetup:
     return dataclasses.replace(setup, A=stream_operator(setup.A))
 
 
+def _coarse_layouts(setup: TwoGridSetup, coarse_dia: bool) -> TwoGridSetup:
+    """The setup with StencilVCycle's coarse-correction operators: Ac as
+    its DIA twin when `coarse_dia` and banded enough, and on a CUDA setup
+    that twin on K1 and P on K2 (see StencilVCycle). On the card the
+    twin's dense diagonals and K1's layouts are built on the host, and
+    only the layouts go to the card: the cycle only applies Ac."""
+    Ac = setup.Ac
+    on_card = setup.A.device.type == "cuda"
+    if coarse_dia and isinstance(Ac, SparseOperator):
+        host = Ac if not on_card else SparseOperator(
+            Ac.rows.cpu(), Ac.cols.cpu(), Ac.vals.cpu(), Ac.row_ptr.cpu(),
+            Ac.shape, host_coo=Ac.host_coo())
+        try:
+            Ac = to_dia(host)
+        except ValueError:
+            pass  # too irregular — keep the COO path
+    if not on_card:
+        return dataclasses.replace(setup, Ac=Ac)
+    if isinstance(Ac, DIAOperator):
+        Ac = dia_kernel_operator(Ac, device=setup.A.device)
+    return setup_with_stream_p(dataclasses.replace(setup, Ac=Ac))
+
+
 class StencilVCycle:
     """Two-grid cycle with the fine level on kernel K4 (the fused stencil).
 
     For grid operators the fine-level work of a cycle — pre-smoothing,
     residual, post-smoothing — runs as three K4 calls (n_pre fused Jacobi
-    sweeps, one fused r = b - A x, n_post fused sweeps); the coarse
-    correction (P^T r -> Chebyshev on Ac -> P xc) stays on the COO path,
-    with Ac swapped to its plain DIA twin when `coarse_dia` and banded
-    enough (the JAX package's `to_dia` swap, which it runs in XLA too).
+    sweeps, one fused r = b - A x, n_post fused sweeps). The coarse
+    correction (P^T r -> Chebyshev on Ac -> P xc) runs on the setup's
+    device: with `coarse_dia` Ac is swapped to its DIA twin when banded
+    enough (the JAX package's `to_dia` swap). On a CUDA setup that twin
+    runs on kernel K1 (`dia_kernel_operator`, its dense diagonals kept on
+    the host and only K1's compact layouts on the card) and P on kernel
+    K2 (`setup_with_stream_p`, which keeps the COO P where K2 refuses its
+    pattern); on the CPU they stay the plain DIA twin and the COO P, as
+    the JAX package runs them in XLA.
 
     Numerics match `vcycle(setup, ...)` with the same parameters: the
     smoother taps M = I - omega D^-1 A are built in float64 on the host,
-    so only f32 rounding differs. The smoothing parameters are baked into
-    the taps; build a new object to change them.
+    so only f32 rounding (and on the card K1's and K2's sum order)
+    differs. The smoothing parameters are baked into the taps; build a
+    new object to change them. The taps are the stage `tg.taps`, the
+    coarse layouts the stage `tg.layout`.
 
     `cycle(b, x)` is one cycle op by op; `run(b, x)` runs it as a program
     (`self.program`, the JAX `_jit_cycle`): on the card a captured graph,
     replayed after the first call.
 
-    K4 launches per cycle: n_pre + 1 + n_post (7 with the defaults)."""
+    Launches per cycle: n_pre + 1 + n_post K4 steps in three calls (3
+    launches in the tile form), and on the card coarse_deg K1 launches on
+    Ac and one K2 launch each for P^T and P."""
 
     def __init__(self, setup: TwoGridSetup, grid_shape, *, n_pre: int = 3,
                  n_post: int = 3, omega: float = 0.7, coarse_deg: int = 4,
@@ -283,23 +327,21 @@ class StencilVCycle:
                 "construct it before setup_with_dia, not after")
         if min(n_pre, n_post) < 1:
             raise ValueError("n_pre and n_post must be >= 1")
-        if coarse_dia and isinstance(setup.Ac, SparseOperator):
-            try:
-                setup = dataclasses.replace(setup, Ac=to_dia(setup.Ac))
-            except ValueError:
-                pass  # too irregular — keep the COO path
         h, w = grid_shape
         self.grid_shape = (int(h), int(w))
-        self.setup = setup
         self._coarse = dict(c=coarse_c, d=coarse_d, deg=coarse_deg)
-        self._pre = make_stencil_jacobi(
-            setup.A, self.grid_shape, omega=omega, n_iters=n_pre,
-            diag=setup.diag, tap_dtype=tap_dtype)
-        self._post = self._pre if n_post == n_pre else make_stencil_jacobi(
-            setup.A, self.grid_shape, omega=omega, n_iters=n_post,
-            diag=setup.diag, tap_dtype=tap_dtype)
-        self._res = make_stencil_residual(setup.A, self.grid_shape,
-                                          tap_dtype=tap_dtype)
+        with stage("tg.taps"):
+            self._pre = make_stencil_jacobi(
+                setup.A, self.grid_shape, omega=omega, n_iters=n_pre,
+                diag=setup.diag, tap_dtype=tap_dtype)
+            self._post = self._pre if n_post == n_pre else \
+                make_stencil_jacobi(setup.A, self.grid_shape, omega=omega,
+                                    n_iters=n_post, diag=setup.diag,
+                                    tap_dtype=tap_dtype)
+            self._res = make_stencil_residual(setup.A, self.grid_shape,
+                                              tap_dtype=tap_dtype)
+        with stage("tg.layout"):
+            self.setup = _coarse_layouts(setup, coarse_dia)
         self.program = program(self.cycle)  # the JAX `_jit_cycle`
 
     def kernel_calls(self):
@@ -311,14 +353,20 @@ class StencilVCycle:
         """One cycle on flat [n] vectors, op by op (capture-safe: no host
         synchronisation)."""
         P, Ac = self.setup.P, self.setup.Ac
-        b2 = b.reshape(self.grid_shape).float()
-        x2 = self._pre.run(b2, x.reshape(self.grid_shape))
-
-        rc = P.rmatvec(self._res.run(b2, x2).reshape(-1))
-        xc = chebyshev(Ac, rc, torch.zeros_like(rc), **self._coarse)
-        x2 = x2 + P.matvec(xc).reshape(self.grid_shape)
-
-        return self._post.run(b2, x2).reshape(-1)
+        with span("tg.cycle"):
+            b2 = b.reshape(self.grid_shape).float()
+            with span("tg.pre"):
+                x2 = self._pre.run(b2, x.reshape(self.grid_shape))
+            with span("tg.residual"):
+                r = self._res.run(b2, x2).reshape(-1)
+            with span("tg.restrict"):
+                rc = P.rmatvec(r)
+            with span("tg.coarse"):
+                xc = chebyshev(Ac, rc, torch.zeros_like(rc), **self._coarse)
+            with span("tg.prolong"):
+                x2 = x2 + P.matvec(xc).reshape(self.grid_shape)
+            with span("tg.post"):
+                return self._post.run(b2, x2).reshape(-1)
 
     def run(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """One cycle on flat [n] vectors as a program (a captured graph
@@ -339,19 +387,25 @@ def vcycle(setup: TwoGridSetup, b: torch.Tensor, x: torch.Tensor, *,
            coarse_d: float = -4.0) -> torch.Tensor:
     """One two-grid cycle. Defaults reproduce the reference (VCycle.py):
     w=0.7 Jacobi smoothing, degree-4 Chebyshev coarse solve with c=-3.4,
-    d=-4.0."""
+    d=-4.0. The cycle is the span `tg.cycle`, its steps the spans `tg.pre`,
+    `tg.residual`, `tg.restrict`, `tg.coarse`, `tg.prolong`, `tg.post`."""
     A, P, Ac = setup.A, setup.P, setup.Ac
     b, x = b.reshape(-1), x.reshape(-1)
-
-    x = jacobi(A, b, x, omega=omega, n_iters=n_pre, diag=setup.diag)
-
-    r = residual(A, b, x)
-    rc = P.rmatvec(r)
-    xc = chebyshev(Ac, rc, torch.zeros_like(rc), c=coarse_c, d=coarse_d,
-                   deg=coarse_deg)
-    x = x + P.matvec(xc)
-
-    return jacobi(A, b, x, omega=omega, n_iters=n_post, diag=setup.diag)
+    with span("tg.cycle"):
+        with span("tg.pre"):
+            x = jacobi(A, b, x, omega=omega, n_iters=n_pre, diag=setup.diag)
+        with span("tg.residual"):
+            r = residual(A, b, x)
+        with span("tg.restrict"):
+            rc = P.rmatvec(r)
+        with span("tg.coarse"):
+            xc = chebyshev(Ac, rc, torch.zeros_like(rc), c=coarse_c,
+                           d=coarse_d, deg=coarse_deg)
+        with span("tg.prolong"):
+            x = x + P.matvec(xc)
+        with span("tg.post"):
+            return jacobi(A, b, x, omega=omega, n_iters=n_post,
+                          diag=setup.diag)
 
 
 def solve(setup: TwoGridSetup, b: torch.Tensor, x: torch.Tensor, *,

@@ -15,10 +15,15 @@ rows, as segments of 32 values. A Galerkin coarse operator's band is
 mostly structural zeros (the fast setup's Ac keeps 2% of its dense
 diagonal array), and the kernel streams only what the tiles hold. The
 dense `diags` stay the operator's parameter, the plain version's storage
-and the gradient's shape; the compact copies of A and A^T are built from
-them at construction and again only when they were replaced or changed
-in place (counted in `rebuilds`), never inside a cycle that leaves them
-alone.
+and the gradient's shape; the compact copy of A is built from them at
+construction, that of A^T at its first use (an operator only applied
+forward, as a coarse operator in a cycle, never builds it), and both
+again only when the diagonals were replaced or changed in place (counted
+in `rebuilds`), never inside a cycle that leaves them alone. The dense diagonals may stay on the host while the layouts, the
+f32 main diagonal and the launches are on the card (`device`): the card
+then holds no dense band, which for the two-grid Ac at 1024^2 (415
+diagonals) is 1.06 GB against a 50 MB layout. The plain version then runs
+on the host, and a gradient in the diagonals needs them on the card.
 
 The diagonals are stored in f32 or, with `diag_dtype=torch.bfloat16`, in
 bf16 (the JAX package's `diag_dtype`): the kernel widens each value to
@@ -27,9 +32,10 @@ f32 before its product, so x, y and the sums stay f32.
 Differentiable in x and in the diagonals with the JAX package's custom
 VJP (`pallas_spmv.py:191-207`): x's cotangent is K1 again on the compact
 layout of the transposed diagonals (`ops/dia.py::dia_transpose`, built at
-construction as `PallasDiaSpMV.__init__` builds them), the diagonals'
-cotangent ybar[i] * x[i + off_k] in plain array ops over the whole [K, n]
-band (zero where i + off_k leaves [0, n)), cast to the stored dtype.
+its first use; `PallasDiaSpMV.__init__` builds them at construction), the
+diagonals' cotangent ybar[i] * x[i + off_k] in plain array ops over the
+whole [K, n] band (zero where i + off_k leaves [0, n)), cast to the
+stored dtype.
 
 Non-finite x gives the reference's result: the reference multiplies every
 stored diagonal, zeros included, so a row that reaches an inf or NaN of x
@@ -136,6 +142,12 @@ def dia_tiles(diags: torch.Tensor,
                     torch.zeros(2, dtype=torch.int32, device=dev), repair)
 
 
+def _on(tiles: DiaTiles, device: torch.device) -> DiaTiles:
+    """The layout with its tensors on `device` (itself where they are)."""
+    return tiles._replace(**{f: getattr(tiles, f).to(device) for f in (
+        "seg_ptr", "seg_off", "seg_vals", "offsets", "state")})
+
+
 def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
     """Launch K1: y = A x for A's compact layout `tiles` (from `dia_tiles`)
     and x [n] f32, all contiguous on one CUDA device."""
@@ -227,26 +239,32 @@ class DiaKernelOperator:
     diagonals replaced or updated in place). `diag_dtype` (float32 or
     bfloat16; default: the dtype of `diags`) is the storage of the
     diagonal stream; `diagonal()` stays the f32 diagonal given, as the JAX
-    operator's `diag` leaf does."""
+    operator's `diag` leaf does. `device` (default: the diagonals') is
+    where the layouts live and `diagonal()` lies; the diagonals stay where
+    they are given (see the module doc)."""
 
     def __init__(self, diags: torch.Tensor, offsets: Tuple[int, ...],
-                 n: int, nnz: int, diag_dtype=None):
+                 n: int, nnz: int, diag_dtype=None, device=None):
         diag_dtype = diag_dtype or diags.dtype
         if diag_dtype not in DIAG_DTYPES:
             raise ValueError(f"dia_spmv: diag_dtype {diag_dtype} is not one "
                              "of float32, bfloat16")
+        self.device = (diags.device if device is None
+                       else torch.empty(0, device=device).device)
         self.offsets = tuple(int(o) for o in offsets)
         k0 = self.offsets.index(0)
         # a copy: a view would keep the whole f32 source array alive
         self._diag = (None if diags.dtype == diag_dtype == torch.float32
-                      else diags[k0].detach().to(torch.float32, copy=True))
+                      and diags.device == self.device
+                      else diags[k0].detach().to(self.device, torch.float32,
+                                                 copy=True))
         self.diags = diags.to(diag_dtype).contiguous()
         self.n = int(n)
         self.nnz = int(nnz)
         self.launches = 0
         self.rebuilds = 0
         self._key = None
-        self.layouts()
+        self.layout()
 
     @property
     def n_rows(self) -> int:
@@ -261,23 +279,41 @@ class DiaKernelOperator:
         return DIAOperator(self.diags, self.offsets, self.n, self.nnz)
 
     def layouts(self) -> Tuple[DiaTiles, DiaTiles]:
-        """The compact layouts of A and A^T, built from the stored
-        diagonals at construction and again only if they were replaced or
-        updated in place since. A^T's dense diagonals, which the plain
-        version needs, are kept only on the CPU: on the card they would
-        double the operator's memory for nothing the kernel reads."""
+        """The compact layouts of A and A^T (see `layout`, `tiles_t`)."""
+        return self.layout(), self.tiles_t
+
+    def layout(self) -> DiaTiles:
+        """A's compact layout, built from the stored diagonals at
+        construction and again only if they were replaced or updated in
+        place since; a rebuild drops A^T's layout, which the next
+        `tiles_t` builds anew."""
         key = self._layout_key()
         if self._key != key:
             if self._key is not None:
                 self.rebuilds += 1
             with torch.no_grad():
-                t = dia_transpose(self.plain())
-                self.tiles = dia_tiles(self.diags, self.offsets)
-                self.tiles_t = dia_tiles(t.diags, t.offsets)
-            self.transposed = t if self.diags.device.type == "cpu" else None
+                self.tiles = _on(dia_tiles(self.diags, self.offsets),
+                                 self.device)
+            self._tiles_t = self.transposed = None
             self._key = key
         guard(self._layout_key, key)  # a captured program replays on these
-        return self.tiles, self.tiles_t
+        return self.tiles
+
+    @property
+    def tiles_t(self) -> DiaTiles:
+        """A^T's compact layout (x's cotangent), built on first use, so
+        an operator that is only applied forward never builds it. A^T's
+        dense diagonals, which the plain version needs, are kept only on
+        the CPU: on the card they would double the operator's memory for
+        nothing the kernel reads."""
+        self.layout()
+        if self._tiles_t is None:
+            with torch.no_grad():
+                t = dia_transpose(self.plain())
+                self._tiles_t = _on(dia_tiles(t.diags, t.offsets),
+                                    self.device)
+            self.transposed = t if self.device.type == "cpu" else None
+        return self._tiles_t
 
     def _layout_key(self):
         return (self.diags.data_ptr(), self.diags._version)
@@ -291,7 +327,7 @@ class DiaKernelOperator:
         state = (span_begin("k1.launch", host_only=True)
                  if _profiler._is_profiler_enabled else None)
         try:
-            y = dia_tiles_spmv_cuda(self.layouts()[0], x)
+            y = dia_tiles_spmv_cuda(self.layout(), x)
             count(self, "launches")
         finally:
             span_end(state)
@@ -300,7 +336,7 @@ class DiaKernelOperator:
     def launch_t(self, ybar: torch.Tensor) -> torch.Tensor:
         """A^T ybar: K1 on the transposed layout (counted) on a CUDA
         tensor, the plain version on a CPU tensor."""
-        tiles_t = self.layouts()[1]
+        tiles_t = self.tiles_t
         if ybar.device.type == "cpu":
             t = self.transposed
             return dia_matvec(t.diags, t.offsets, ybar)
@@ -325,11 +361,12 @@ class DiaKernelOperator:
         return self.diags[self.offsets.index(0)]
 
 
-def dia_kernel_operator(dia: DIAOperator,
-                        diag_dtype=None) -> DiaKernelOperator:
+def dia_kernel_operator(dia: DIAOperator, diag_dtype=None,
+                        device=None) -> DiaKernelOperator:
     """Wrap a DIAOperator in kernel K1 (solver protocol), with the
-    diagonals stored in `diag_dtype` (float32 or bfloat16). The port's
-    counterpart of both `pallas_dia_operator` and `make_dia_spmv_padded(
-    dia, diag_dtype=...)`: with no padded layout the two are one."""
+    diagonals stored in `diag_dtype` (float32 or bfloat16) and the layouts
+    on `device` (default: the diagonals'). The port's counterpart of both
+    `pallas_dia_operator` and `make_dia_spmv_padded(dia, diag_dtype=...)`:
+    with no padded layout the two are one."""
     return DiaKernelOperator(dia.diags, dia.offsets, dia.n, dia.nnz,
-                             diag_dtype)
+                             diag_dtype, device)

@@ -241,6 +241,27 @@ def test_in_place_update_is_in_the_next_rebuild():
     assert op.rebuilds == 1
 
 
+def test_transposed_layout_is_built_at_first_use():
+    """An operator applied only forward never builds A^T's layout; its
+    first use builds it once and keeps it, and a rebuild of A's layout
+    (an in-place update) drops it until the next use."""
+    op, _ = operators("ac40", "f32")
+    x = torch.from_numpy(vec(op.n, 3))
+    for _ in range(2):
+        op.matvec(x)
+        op.layout()
+    assert op._tiles_t is None and op.transposed is None
+    tiles_t = op.tiles_t
+    assert op.tiles_t is tiles_t and op.transposed is not None
+    with torch.no_grad():
+        op.diags.mul_(2.0)
+    op.layout()
+    assert op.rebuilds == 1 and op._tiles_t is None
+    t = dia_transpose(op.plain())
+    assert torch.equal(scatter(op.tiles_t, t.offsets)[:, :op.n], t.diags)
+    assert op.rebuilds == 1
+
+
 def test_gradient_steps_rebuild_once_each():
     """With the diagonals requiring grad (the Function receives the
     operator's own tensor), forward and backward rebuild nothing; each

@@ -838,6 +838,61 @@ def test_stencil_forms_and_launches_of_the_cycles(cuda):
                                               3, "plain"))
 
 
+def test_stencil_leg_coarse_correction_on_k1_and_k2(cuda):
+    """AutoTwoGrid's stencil leg on the card: Ac (the DIA twin, its dense
+    diagonals on the host) on K1 and P on K2, with exact launches a cycle
+    (3 K4, 4 K1 on Ac for the degree-4 Chebyshev, one K2 each for P^T and
+    P); x after 5 cycles matches the same cycle with the plain DIA Ac on
+    the card and the COO P within RTOL (K1's and K2's sum order)."""
+    import copy
+    import dataclasses
+
+    from gnnla_tpu_torch.models.vcycle import setup_auto
+    from gnnla_tpu_torch.ops.dia import to_dia
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+    from gnnla_tpu_torch.ops.stream_op import RectStreamOperator
+    from gnnla_tpu_torch.problems import laplacian_2d
+
+    auto = setup_auto(laplacian_2d(64, device=cuda).eliminate_zeros())
+    assert auto.layout == "stencil"
+    sv = auto._stencil
+    Ac, P = sv.setup.Ac, sv.setup.P
+    assert type(Ac) is DiaKernelOperator and type(P) is RectStreamOperator
+    assert Ac.diags.device.type == "cpu"
+    assert Ac.tiles.seg_vals.is_cuda and Ac.diagonal().is_cuda
+    counted = sv.kernel_calls() + [Ac, P.bwd, P.fwd]
+    for obj in counted:
+        obj.launches = 0
+    b = _rand(64 * 64, 6, cuda)
+    x = auto.solve(b, torch.zeros_like(b), n_cycles=5)
+    assert [obj.launches for obj in counted] == [10, 5, 20, 5, 5]
+    plain = copy.copy(sv)
+    plain.setup = dataclasses.replace(sv.setup, Ac=to_dia(auto.setup.Ac),
+                                      P=auto.setup.P)
+    want = torch.zeros_like(b)
+    for _ in range(5):
+        want = plain.cycle(b, want)
+    _close(x, want)
+
+
+def test_dia_kernel_layout_built_on_the_host(cuda):
+    """A K1 operator whose diagonals stay on the host and whose layouts
+    are on the card launches the same kernel on the same layout: bitwise
+    the operator built on the card, one launch each; its diagonal() lies
+    on the card."""
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+
+    _, fast = _fast(64, cuda)
+    Ac = fast.Ac
+    host = DiaKernelOperator(Ac.diags.cpu(), Ac.offsets, Ac.n, Ac.nnz,
+                             device=cuda)
+    assert host.diags.device.type == "cpu" and host.tiles.seg_vals.is_cuda
+    x = _rand(Ac.n, 7, cuda)
+    y = host.matvec(x)
+    assert torch.equal(y, Ac.matvec(x)) and host.launches == 1
+    assert torch.equal(host.diagonal(), Ac.diagonal())
+
+
 def _power_law_csr(n, seed):
     """Rows of 1 to 3,000 nonzeros (a Zipf tail), distinct columns."""
     import scipy.sparse as sp
