@@ -177,7 +177,16 @@ The multilevel hierarchies and the Krylov solvers:
                     K2 against its plain version and cuSPARSE, flushed,
                     plain, COO-operator and cuSPARSE times beside the bound,
                     and the share of rows and nonzeros in long rows (a
-                    `csr_spmv[SA<grid>.<key>]` row each).
+                    `csr_spmv[SA<grid>.<key>]` row each). In that cycle
+                    each K1 level that smooths makes 3 fused launches (its
+                    two Jacobi sweeps and its residual), the coarsest none;
+                    on each such level of both hierarchies, K1's Jacobi and
+                    residual forms bitwise the eager chain (every split and
+                    repair instantiation the solves launch); on 2-D levels
+                    0 and 1 each form flushed, beside K1 with the chain's
+                    elementwise kernels (five for a sweep, one for the
+                    residual), K1 alone and the fused bytes' bound (a
+                    `dia_tiles_<form>[SA2d.A<l>]` row each).
 The GN-block engine and the paper's GN forms, held against the kernels:
  23. gn_setup     — `setup_twogrid(use_device_gnn=True)` on phase 3's
                     operator (SOC and direct interpolation as GN blocks on
@@ -860,6 +869,100 @@ def dia_raw(lib, tiles, x: torch.Tensor):
                         x.data_ptr(), y.data_ptr(), stream), "K1 raw")
     return (raw, tiles.nbytes + 2 * tiles.n * 4,
             2 * tiles.seg_vals.numel())
+
+
+def dia_update_raw(lib, tiles, x: torch.Tensor, b: torch.Tensor,
+                   d: torch.Tensor = None):
+    """(raw launch of K1's Jacobi form (with d, omega 0.7) or residual form
+    (without) on the compact layout `tiles`, bytes, flops): the layout, x,
+    b and d read once, the result written once; 2 flops per stored value
+    and 5 (rcp, scale, b - y, w * r, x + t) or 1 (b - y) per row."""
+    out = torch.empty(tiles.n, device=x.device)
+    f32 = tiles.seg_vals.dtype == torch.float32
+    stream = torch.cuda.current_stream().cuda_stream
+    head = (tiles.seg_ptr.data_ptr(), tiles.seg_off.data_ptr(),
+            tiles.seg_vals.data_ptr(), tiles.n, int(tiles.split),
+            tiles.offsets.data_ptr(), tiles.offsets.shape[0],
+            tiles.state.data_ptr() if tiles.repair else None, x.data_ptr(),
+            b.data_ptr())
+    if d is None:
+        fn = lib.dia_residual_f32 if f32 else lib.dia_residual_bf16
+        tail = (out.data_ptr(), stream)
+    else:
+        fn = lib.dia_jacobi_f32 if f32 else lib.dia_jacobi_bf16
+        tail = (d.data_ptr(), 0.7, out.data_ptr(), stream)
+
+    def raw():
+        _build.check(fn(*head, *tail), "K1 fused raw")
+    n_vecs, per_row = (3, 1) if d is None else (4, 5)
+    return (raw, tiles.nbytes + n_vecs * tiles.n * 4,
+            2 * tiles.seg_vals.numel() + per_row * tiles.n)
+
+
+def sa_fused_forms(op, d: torch.Tensor, x: torch.Tensor,
+                   b: torch.Tensor) -> dict:
+    """{form: (fused, eager)}: K1's Jacobi form (omega 0.7, the cycle's,
+    the smoother's diagonal d) and residual form through the operator,
+    and the eager chain each replaces over plain K1."""
+    return dict(
+        jacobi=(lambda: op.jacobi_sweep(b, x, 0.7, d),
+                lambda: x + (0.7 / d) * (b - op.launch(x))),
+        residual=(lambda: op.residual(b, x), lambda: b - op.launch(x)))
+
+
+def sa_fused_bitwise(mg, tag: str) -> list:
+    """K1's Jacobi and residual forms on every K1 smoothing level of `mg`
+    (each level but the coarsest), each bitwise the eager chain over plain
+    K1 on random x and b; per level its rows and the instantiation the
+    solve launches there (split shape, non-finite repair)."""
+    gen = np.random.default_rng(47)
+    out = []
+    for lvl, op in enumerate(mg.As[:-1]):
+        if not isinstance(op, DiaKernelOperator):
+            continue
+        d = mg.diags[lvl]
+        x, b = (torch.from_numpy(gen.standard_normal(op.n).astype(
+            np.float32)).to(d.device) for _ in range(2))
+        for form, (fused, eager) in sa_fused_forms(op, d, x, b).items():
+            got, want = fused(), eager()
+            require(torch.equal(got, want), (tag, lvl, form, float(
+                (got - want).abs().max())))
+        out.append(dict(level=lvl, rows=op.n, split_form=op.tiles.split,
+                        repair=op.tiles.repair))
+    return out
+
+
+def sa_fused_rows(mg, tag: str, lib, flush) -> list:
+    """K1's Jacobi and residual forms on SA levels 0 and 1 of `mg` (checked
+    bitwise by `sa_fused_bitwise`): each one's raw launch, K1 with the
+    chain's elementwise kernels (five for a sweep: omega / d as reciprocal
+    and scale, b - y, w * r, x + t; one, b - y, for the residual) and plain
+    K1 alone, flushed, in turns, beside the bound of the fused form's
+    bytes."""
+    rows = []
+    gen = np.random.default_rng(43)
+    for lvl in (0, 1):
+        op, d = mg.As[lvl], mg.diags[lvl]
+        require(isinstance(op, DiaKernelOperator), (tag, lvl, type(op)))
+        x, b = (torch.from_numpy(gen.standard_normal(op.n).astype(
+            np.float32)).to(d.device) for _ in range(2))
+        k1_raw, _, _ = dia_raw(lib, op.tiles, x)
+        for form, (_, eager) in sa_fused_forms(op, d, x, b).items():
+            raw, bytes_moved, flops = dia_update_raw(
+                lib, op.tiles, x, b, d if form == "jacobi" else None)
+            ms = cold_ms_turns(dict(fused=raw, unfused=eager, k1=k1_raw),
+                               20, flush)
+            bound_ms, bound_by = bound(bytes_moved, flops)
+            rows.append(dict(
+                name=f"dia_tiles_{form}[SA{tag}.A{lvl}]", route="cuda",
+                source=K1_ROW[0], replaces=f"gnnla_tpu/models/{form}.py "
+                "(XLA's elementwise ops after the SpMV)",
+                launches_per_cycle=2 if form == "jacobi" else 1,
+                bitwise=True, ms=ms["fused"], unfused_ms=ms["unfused"],
+                k1_ms=ms["k1"], bound_ms=bound_ms, bound_by=bound_by,
+                rows=op.n, segments=op.tiles.n_segs,
+                split_form=op.tiles.split))
+    return rows
 
 
 def k1_fields(tiles, k: int, nnz: int) -> dict:
@@ -2200,7 +2303,9 @@ def sa_k2_phase(lib, flush, smi) -> list:
     SA_K2_SHAPES the kernel against its plain version, its flushed time,
     the bound, the plain version's, the COO operator's it replaced and
     cuSPARSE's (a `csr_spmv[SA<grid>.<key>]` row each), with the share of
-    rows and of nonzeros in rows a whole CUDA block sums."""
+    rows and of nonzeros in rows a whole CUDA block sums; K1's fused forms
+    bitwise on every K1 smoothing level (`sa_fused_bitwise`) and timed on
+    2-D levels 0 and 1 (`sa_fused_rows`)."""
     dev = torch.device("cuda")
     rows_out, summary = [], {}
     for tag, grid, keys in SA_K2_SHAPES:
@@ -2221,12 +2326,22 @@ def sa_k2_phase(lib, flush, smi) -> list:
             twins[f"P{lvl}T"] = (p.bwd, p0.rmatvec, 1)
         for csr, _, _ in twins.values():
             csr.launches = 0
+        on_k1 = {lvl: a for lvl, a in enumerate(mg.As)
+                 if isinstance(a, DiaKernelOperator)}
+        for a in on_k1.values():
+            a.fused_launches = 0
         b = torch.ones(A.n_rows, device=dev)
         multigrid_cycle(mg, b, torch.zeros_like(b), n_pre=1, n_post=1)
         torch.cuda.synchronize()
         got = {k: c.launches for k, (c, _, _) in twins.items()}
         want = {k: n for k, (_, _, n) in twins.items()}
         require(got == want, (tag, got, want))
+        fused = {lvl: a.fused_launches for lvl, a in on_k1.items()}
+        require(fused == {lvl: 0 if lvl == last else 3 for lvl in on_k1},
+                (tag, "fused launches", fused))
+        checked = sa_fused_bitwise(mg, tag)
+        require([c["level"] for c in checked]
+                == [lvl for lvl in on_k1 if lvl != last], (tag, checked))
         gen = np.random.default_rng(41)
         for key in keys:
             csr, coo, per_cycle = twins[key]
@@ -2255,8 +2370,11 @@ def sa_k2_phase(lib, flush, smi) -> list:
                 long_nnz_share=float(lens[long_].sum()) / csr.nnz,
                 max_row=int(lens.max()), **k2_fields(csr)))
             del lib_mat
+        if len(grid) == 2:
+            rows_out += sa_fused_rows(mg, tag, lib, flush)
         summary[tag] = dict(
-            grid=list(grid), swap_s=t_swap, levels=[
+            grid=list(grid), swap_s=t_swap, fused_launches=fused,
+            fused_bitwise=checked, levels=[
                 dict(rows=a.n_rows, nnz=a.nnz, kind=type(a).__name__)
                 for a in mg.As], launches_per_cycle=got)
         del A, sa, mg, twins
@@ -2264,7 +2382,8 @@ def sa_k2_phase(lib, flush, smi) -> list:
     emit(dict(phase="sa_k2", hierarchies=summary,
               rows=[{k: r[k] for k in ("name", "ms", "bound_ms", "plain_ms",
                                         "coo_ms", "library_ms",
-                                        "long_row_share", "long_nnz_share")}
+                                        "long_row_share", "long_nnz_share",
+                                        "unfused_ms", "k1_ms") if k in r}
                     for r in rows_out], nvidia_smi=smi))
     return rows_out
 

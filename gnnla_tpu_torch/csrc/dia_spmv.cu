@@ -73,6 +73,26 @@
 //     past its first and last grid rows) can need no repair; its caller
 //     passes no `state`, and the kernel takes no ticket.
 //
+// Vertex-update forms. In a multigrid cycle the kernel's result feeds a
+// pass over n-vectors: a Jacobi sweep x + w (b - A x), w = omega / d, runs
+// b - y, w * r and x + t after it (and omega / d, two more kernels, at
+// each call), the residual b - A x one b - y. As PyTorch kernels those
+// passes each read two or three vectors and write one, and on the small
+// levels they are launch-bound. Two more forms of the kernel apply the
+// update to row i's sum while it is in a register, so a sweep or a
+// residual is one launch that reads x, b (and d) once and writes one
+// vector, `out`:
+//   * Jacobi: out[i] = x[i] + w_i (b[i] - acc_i), w_i = rn(rcp(d[i]) omega);
+//   * residual: out[i] = b[i] - acc_i.
+// Each rounds step by step as the eager chain does (the _rn intrinsics
+// keep the compiler from contracting a product and a sum into an FMA):
+// rcp(d) then * omega is torch's `omega / d` (`d.reciprocal() * omega`),
+// then b - y, w * r and x + t; so on the same sums the fused forms give
+// the eager chain's bits. Both come in the warp-per-tile and the split
+// shape, over the same `walk` and `finish`. `out` is never x or b: other
+// rows read x at shifted offsets. The non-finite repair writes NaN into
+// `out`'s rows, which is what the eager chain gives for a NaN y.
+//
 // The gradient needs no other kernel: x's cotangent is this kernel on the
 // compact layout of the transposed diagonals (ops/dia.py::dia_transpose),
 // the diagonals' cotangent plain elementwise products, as in the JAX
@@ -81,6 +101,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -238,6 +260,119 @@ dia_tiles_split_kernel(Layout<D> L, const float* __restrict__ x,
     finish<D>(warp == 0 && i < L.n && !isfinite(__ldg(x + i)), L, x, y);
 }
 
+// The vertex updates (see the header): row i's new value from its sum.
+// `load` fetches the row's own operands before the walk, so that their
+// loads are in flight with the walk's and not one more round trip after
+// it; `apply` forms the new value from them and the sum.
+struct JacobiUpdate {
+  const float* b;
+  const float* d;
+  float omega;
+  struct Row {
+    float x, b, d;
+  };
+  __device__ __forceinline__ Row load(int i, const float* x) const {
+    return {__ldg(x + i), __ldg(b + i), __ldg(d + i)};
+  }
+  __device__ __forceinline__ float apply(const Row& r, float acc) const {
+    const float w = __fmul_rn(__frcp_rn(r.d), omega);
+    return __fadd_rn(r.x, __fmul_rn(w, __fsub_rn(r.b, acc)));
+  }
+};
+
+struct ResidualUpdate {
+  const float* b;
+  struct Row {
+    float b;
+  };
+  __device__ __forceinline__ Row load(int i, const float*) const {
+    return {__ldg(b + i)};
+  }
+  __device__ __forceinline__ float apply(const Row& r, float acc) const {
+    return __fsub_rn(r.b, acc);
+  }
+};
+
+// dia_tiles_kernel's body with the update U applied to each row's sum.
+template <typename D, bool REPAIR, typename U>
+__device__ __forceinline__ void tiles_update(const Layout<D>& L, int n_tiles,
+                                             const float* __restrict__ x,
+                                             const U& u,
+                                             float* __restrict__ out) {
+  const int lane = threadIdx.x & (kTile - 1);
+  const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int i = tile * kTile + lane;
+  if (tile < n_tiles) {
+    typename U::Row row{};
+    if (i < L.n) row = u.load(i, x);
+    const float acc = walk<D>(L.seg_off, L.seg_vals, __ldg(L.seg_ptr + tile),
+                              __ldg(L.seg_ptr + tile + 1), i, L.n, x, lane);
+    if (i < L.n) out[i] = u.apply(row, acc);
+  }
+  if (REPAIR) finish<D>(i < L.n && !isfinite(__ldg(x + i)), L, x, out);
+}
+
+// dia_tiles_split_kernel's body with the update U applied to each row's sum.
+template <typename D, bool REPAIR, typename U>
+__device__ __forceinline__ void split_update(const Layout<D>& L,
+                                             const float* __restrict__ x,
+                                             const U& u,
+                                             float* __restrict__ out) {
+  __shared__ float part[kSplitWarps][kTile];
+  const int lane = threadIdx.x & (kTile - 1);
+  const int warp = threadIdx.x >> 5;
+  const int tile = blockIdx.x;
+  const int i = tile * kTile + lane;
+  const int start = __ldg(L.seg_ptr + tile);
+  const int end = __ldg(L.seg_ptr + tile + 1);
+  const int run = (end - start + kSplitWarps - 1) / kSplitWarps;
+  const int s0 = min(end, start + warp * run);
+  const int s1 = min(end, s0 + run);
+  typename U::Row row{};
+  if (warp == 0 && i < L.n) row = u.load(i, x);
+  part[warp][lane] = walk<D>(L.seg_off, L.seg_vals, s0, s1, i, L.n, x, lane);
+  __syncthreads();
+  if (warp == 0) {
+    float acc = part[0][lane];
+#pragma unroll
+    for (int w = 1; w < kSplitWarps; ++w) acc += part[w][lane];
+    if (i < L.n) out[i] = u.apply(row, acc);
+  }
+  if (REPAIR)
+    finish<D>(warp == 0 && i < L.n && !isfinite(__ldg(x + i)), L, x, out);
+}
+
+// One name per form, so that a trace tells them apart; each holds
+// "dia_tiles", which the benchmark's K1 readers match.
+template <typename D, bool REPAIR>
+__global__ void __launch_bounds__(kWarps * kTile)
+dia_tiles_jacobi_kernel(Layout<D> L, int n_tiles, const float* __restrict__ x,
+                        JacobiUpdate u, float* __restrict__ out) {
+  tiles_update<D, REPAIR>(L, n_tiles, x, u, out);
+}
+
+template <typename D, bool REPAIR>
+__global__ void __launch_bounds__(kSplitWarps * kTile)
+dia_tiles_split_jacobi_kernel(Layout<D> L, const float* __restrict__ x,
+                              JacobiUpdate u, float* __restrict__ out) {
+  split_update<D, REPAIR>(L, x, u, out);
+}
+
+template <typename D, bool REPAIR>
+__global__ void __launch_bounds__(kWarps * kTile)
+dia_tiles_residual_kernel(Layout<D> L, int n_tiles,
+                          const float* __restrict__ x, ResidualUpdate u,
+                          float* __restrict__ out) {
+  tiles_update<D, REPAIR>(L, n_tiles, x, u, out);
+}
+
+template <typename D, bool REPAIR>
+__global__ void __launch_bounds__(kSplitWarps * kTile)
+dia_tiles_split_residual_kernel(Layout<D> L, const float* __restrict__ x,
+                                ResidualUpdate u, float* __restrict__ out) {
+  split_update<D, REPAIR>(L, x, u, out);
+}
+
 template <typename D>
 int launch(const void* seg_ptr, const void* seg_off, const void* seg_vals,
            int n, int split, const void* offsets, int K, void* state,
@@ -264,6 +399,53 @@ int launch(const void* seg_ptr, const void* seg_off, const void* seg_vals,
   return (int)cudaGetLastError();
 }
 
+// `launch` for the vertex-update forms: the same layout and form choice.
+template <typename D, typename U>
+int launch_update(const void* seg_ptr, const void* seg_off,
+                  const void* seg_vals, int n, int split, const void* offsets,
+                  int K, void* state, const void* x, U u, void* out,
+                  void* stream) {
+  if (n <= 0) return 0;
+  if (state && (K < 1 || !offsets)) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n - 1) / kTile + 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Layout<D> L{(const int*)seg_ptr, (const int*)seg_off,
+                    (const D*)seg_vals, (const int*)offsets, (int*)state, n,
+                    K};
+  const int blocks = split ? n_tiles : (n_tiles - 1) / kWarps + 1;
+  const int threads = (split ? kSplitWarps : kWarps) * kTile;
+  const float* xf = (const float*)x;
+  float* of = (float*)out;
+  if constexpr (std::is_same<U, JacobiUpdate>::value) {
+    if (split && state)
+      dia_tiles_split_jacobi_kernel<D, true><<<blocks, threads, 0, s>>>(
+          L, xf, u, of);
+    else if (split)
+      dia_tiles_split_jacobi_kernel<D, false><<<blocks, threads, 0, s>>>(
+          L, xf, u, of);
+    else if (state)
+      dia_tiles_jacobi_kernel<D, true><<<blocks, threads, 0, s>>>(
+          L, n_tiles, xf, u, of);
+    else
+      dia_tiles_jacobi_kernel<D, false><<<blocks, threads, 0, s>>>(
+          L, n_tiles, xf, u, of);
+  } else {
+    if (split && state)
+      dia_tiles_split_residual_kernel<D, true><<<blocks, threads, 0, s>>>(
+          L, xf, u, of);
+    else if (split)
+      dia_tiles_split_residual_kernel<D, false><<<blocks, threads, 0, s>>>(
+          L, xf, u, of);
+    else if (state)
+      dia_tiles_residual_kernel<D, true><<<blocks, threads, 0, s>>>(
+          L, n_tiles, xf, u, of);
+    else
+      dia_tiles_residual_kernel<D, false><<<blocks, threads, 0, s>>>(
+          L, n_tiles, xf, u, of);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // seg_ptr [n_tiles+1] int32, seg_off [n_segs] int32, seg_vals [n_segs, 32]
@@ -287,4 +469,50 @@ extern "C" int dia_spmv_bf16(const void* seg_ptr, const void* seg_off,
                              const void* x, void* y, void* stream) {
   return launch<__nv_bfloat16>(seg_ptr, seg_off, seg_vals, n, split, offsets,
                                K, state, x, y, stream);
+}
+
+// The vertex-update forms, with the arguments of dia_spmv_* and: b [n] f32,
+// d [n] f32 (Jacobi: the smoother's diagonal) and omega, out [n] f32, a
+// buffer that is neither x nor b. Jacobi: out = x + rn(rcp(d) omega)
+// (b - A x); residual: out = b - A x.
+extern "C" int dia_jacobi_f32(const void* seg_ptr, const void* seg_off,
+                              const void* seg_vals, int n, int split,
+                              const void* offsets, int K, void* state,
+                              const void* x, const void* b, const void* d,
+                              float omega, void* out, void* stream) {
+  return launch_update<float>(seg_ptr, seg_off, seg_vals, n, split, offsets,
+                              K, state, x,
+                              JacobiUpdate{(const float*)b, (const float*)d,
+                                           omega},
+                              out, stream);
+}
+
+extern "C" int dia_jacobi_bf16(const void* seg_ptr, const void* seg_off,
+                               const void* seg_vals, int n, int split,
+                               const void* offsets, int K, void* state,
+                               const void* x, const void* b, const void* d,
+                               float omega, void* out, void* stream) {
+  return launch_update<__nv_bfloat16>(
+      seg_ptr, seg_off, seg_vals, n, split, offsets, K, state, x,
+      JacobiUpdate{(const float*)b, (const float*)d, omega}, out, stream);
+}
+
+extern "C" int dia_residual_f32(const void* seg_ptr, const void* seg_off,
+                                const void* seg_vals, int n, int split,
+                                const void* offsets, int K, void* state,
+                                const void* x, const void* b, void* out,
+                                void* stream) {
+  return launch_update<float>(seg_ptr, seg_off, seg_vals, n, split, offsets,
+                              K, state, x, ResidualUpdate{(const float*)b},
+                              out, stream);
+}
+
+extern "C" int dia_residual_bf16(const void* seg_ptr, const void* seg_off,
+                                 const void* seg_vals, int n, int split,
+                                 const void* offsets, int K, void* state,
+                                 const void* x, const void* b, void* out,
+                                 void* stream) {
+  return launch_update<__nv_bfloat16>(
+      seg_ptr, seg_off, seg_vals, n, split, offsets, K, state, x,
+      ResidualUpdate{(const float*)b}, out, stream);
 }

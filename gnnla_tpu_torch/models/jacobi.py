@@ -50,9 +50,17 @@ def jacobi(op, b: torch.Tensor, x: torch.Tensor, *, omega: float,
 
     `diag` overrides A's diagonal — the trained-Jacobi diagonal D_i of the
     learned smoother (see gnnla_tpu/models/jacobi.py for why a
-    reference-recipe D must not be used in a cycle)."""
+    reference-recipe D must not be used in a cycle).
+
+    An operator with a fused sweep (kernel K1's `jacobi_sweep`) runs each
+    sweep as one launch, with the same bits, when autograd needs nothing
+    of it (`op.fuses`)."""
     b, x = b.reshape(-1), x.reshape(-1)
     d = op.diagonal() if diag is None else diag.reshape(-1)
+    if hasattr(op, "fuses") and op.fuses(b, x, d):
+        for _ in range(n_iters):
+            x = op.jacobi_sweep(b, x, omega, d)
+        return x
     w_over_d = omega / d
     for _ in range(n_iters):
         x = x + w_over_d * (b - op.matvec(x))

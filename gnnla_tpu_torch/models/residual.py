@@ -35,5 +35,9 @@ def residual_gnn(op: SparseOperator, b: torch.Tensor,
 
 
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """r = b - A @ x, for any operator with `matvec`."""
+    """r = b - A @ x, for any operator with `matvec`; as one launch on an
+    operator with a fused residual (kernel K1's) when autograd needs
+    nothing of it (`op.fuses`)."""
+    if hasattr(op, "fuses") and op.fuses(b, x):
+        return op.residual(b, x)
     return b - op.matvec(x)

@@ -47,6 +47,15 @@ zeroed. So one layout must not run on two CUDA streams at once. A layout
 that skips no segment a row reaches in range (`DiaTiles.repair` False,
 as the Laplacian's) can need no repair, and its launches take no ticket.
 
+Two more forms of the kernel apply a multigrid level's vertex update to
+each row's sum in the same launch (`DiaKernelOperator.jacobi_sweep`, a
+Jacobi sweep x + (omega / d)(b - A x), and `.residual`, b - A x; see
+`csrc/dia_spmv.cu`): the passes over n-vectors that PyTorch would run after
+the SpMV, one kernel each, go. They round each step as the eager chain
+does, so they give its bits. They have no backward: `jacobi` and
+`residual` (`models/`) take them only when autograd needs nothing of the
+sweep (`DiaKernelOperator.fuses`).
+
 The TPU's tile fitting (`fit_dia_tile`) and halo-padded layout have no
 counterpart: they exist for the TPU's VMEM. The kernel takes plain [n]
 vectors; its bounds guard replaces the halo padding.
@@ -54,7 +63,7 @@ vectors; its bounds guard replaces the halo padding.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch.autograd import profiler as _profiler
@@ -148,9 +157,8 @@ def _on(tiles: DiaTiles, device: torch.device) -> DiaTiles:
         "seg_ptr", "seg_off", "seg_vals", "offsets", "state")})
 
 
-def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1: y = A x for A's compact layout `tiles` (from `dia_tiles`)
-    and x [n] f32, all contiguous on one CUDA device."""
+def _check_operands(tiles: DiaTiles, x: torch.Tensor) -> None:
+    """Raise ValueError unless K1 takes the layout `tiles` and x."""
     _require(x.device.type == "cuda", f"x lies on {x.device}, not CUDA")
     ptr, off, vals = tiles.seg_ptr, tiles.seg_off, tiles.seg_vals
     offs, state = tiles.offsets, tiles.state
@@ -173,6 +181,14 @@ def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
     _require(n < 2 ** 31 - TILE, f"n={n} exceeds the kernel's int32 rows")
     _require(all(t.is_contiguous() for t in (ptr, off, vals, offs, x)),
              "inputs must be contiguous")
+
+
+def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
+    """Launch K1: y = A x for A's compact layout `tiles` (from `dia_tiles`)
+    and x [n] f32, all contiguous on one CUDA device."""
+    _check_operands(tiles, x)
+    ptr, off, vals = tiles.seg_ptr, tiles.seg_off, tiles.seg_vals
+    offs, state, n = tiles.offsets, tiles.state, tiles.n
     y = torch.empty_like(x)
     lib = _build.load()
     fn, name = ((lib.dia_spmv_f32, "dia_spmv_f32")
@@ -185,6 +201,41 @@ def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
                         state.data_ptr() if tiles.repair else None,
                         x.data_ptr(), y.data_ptr(), stream), name)
     return y
+
+
+def dia_tiles_update_cuda(tiles: DiaTiles, x: torch.Tensor, b: torch.Tensor,
+                          d: Optional[torch.Tensor] = None,
+                          omega: float = 0.0) -> torch.Tensor:
+    """Launch K1 with a vertex update, into a new vector: with `d`, the
+    Jacobi form x + rn(rn(1 / d) * omega) * (b - A x); without, the
+    residual form b - A x. b and d are [n] f32 vectors, contiguous on x's
+    device. Each step rounds as the eager chain does."""
+    _check_operands(tiles, x)
+    vecs = (b,) if d is None else (b, d)
+    _require(all(v.device == x.device and v.dtype == torch.float32
+                 and v.shape == x.shape and v.is_contiguous() for v in vecs),
+             "b and d must be contiguous float32 vectors shaped as x, on "
+             "x's device")
+    ptr, off, vals = tiles.seg_ptr, tiles.seg_off, tiles.seg_vals
+    offs = tiles.offsets
+    out = torch.empty_like(x)
+    lib = _build.load()
+    f32 = vals.dtype == torch.float32
+    args = (ptr.data_ptr(), off.data_ptr(), vals.data_ptr(), tiles.n,
+            int(tiles.split), offs.data_ptr(), offs.shape[0],
+            tiles.state.data_ptr() if tiles.repair else None, x.data_ptr(),
+            b.data_ptr())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if d is None:
+            name = "dia_residual_f32" if f32 else "dia_residual_bf16"
+            status = getattr(lib, name)(*args, out.data_ptr(), stream)
+        else:
+            name = "dia_jacobi_f32" if f32 else "dia_jacobi_bf16"
+            status = getattr(lib, name)(*args, d.data_ptr(), float(omega),
+                                        out.data_ptr(), stream)
+        _build.check(status, name)
+    return out
 
 
 def diags_cotangent(offsets: Tuple[int, ...], ybar: torch.Tensor,
@@ -235,7 +286,9 @@ class DiaKernelOperator:
     `launches` counts the kernel launches made through `matvec` and its
     backward (x's cotangent is one more launch, on the transposed
     layout); it never moves on the CPU path, which runs the plain
-    version. `rebuilds` counts the compactions after construction (the
+    version. `fused_launches` counts those of them that ran a vertex
+    update (`jacobi_sweep`, `residual`), each in place of a plain launch.
+    `rebuilds` counts the compactions after construction (the
     diagonals replaced or updated in place). `diag_dtype` (float32 or
     bfloat16; default: the dtype of `diags`) is the storage of the
     diagonal stream; `diagonal()` stays the f32 diagonal given, as the JAX
@@ -262,6 +315,7 @@ class DiaKernelOperator:
         self.n = int(n)
         self.nnz = int(nnz)
         self.launches = 0
+        self.fused_launches = 0
         self.rebuilds = 0
         self._key = None
         self.layout()
@@ -343,6 +397,43 @@ class DiaKernelOperator:
         y = dia_tiles_spmv_cuda(tiles_t, ybar)
         count(self, "launches")
         return y
+
+    def fuses(self, *vectors: torch.Tensor) -> bool:
+        """Whether `jacobi_sweep` and `residual` take these vectors: all
+        float32 [n] vectors, and autograd needs nothing of them or of the
+        diagonals (the fused forms have no backward)."""
+        return (all(v.dtype == torch.float32 and v.ndim == 1
+                    for v in vectors)
+                and not (torch.is_grad_enabled() and (
+                    self.diags.requires_grad
+                    or any(v.requires_grad for v in vectors))))
+
+    def jacobi_sweep(self, b: torch.Tensor, x: torch.Tensor, omega: float,
+                     d: torch.Tensor) -> torch.Tensor:
+        """One Jacobi sweep x + (omega / d) * (b - A x), d the smoother's
+        diagonal: K1's Jacobi form, one launch, on CUDA tensors; the same
+        eager chain on CPU tensors. No autograd (see `fuses`)."""
+        if x.device.type == "cpu":
+            return x + (omega / d) * (b - self.launch(x))
+        return self._update(x, b, d, omega)
+
+    def residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """b - A x: K1's residual form, one launch, on CUDA tensors; the
+        eager difference on CPU tensors. No autograd (see `fuses`)."""
+        if x.device.type == "cpu":
+            return b - self.launch(x)
+        return self._update(x, b)
+
+    def _update(self, x, b, d=None, omega=0.0) -> torch.Tensor:
+        state = (span_begin("k1.launch", host_only=True)
+                 if _profiler._is_profiler_enabled else None)
+        try:
+            out = dia_tiles_update_cuda(self.layout(), x, b, d, omega)
+            count(self, "launches")
+            count(self, "fused_launches")
+        finally:
+            span_end(state)
+        return out
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim > 1:

@@ -81,6 +81,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import gc
 from time import perf_counter
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -294,6 +295,22 @@ def _recording(record: _Record):
         _INSIDE.reset(tokens[1])
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's cyclic garbage collector off for the duration (then as it
+    was). A collection inside a capture can free another program's graph
+    (one held in a reference cycle, as `StencilVCycle` and its program
+    are), and destroying a graph while a stream captures invalidates the
+    capture."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def _static_key(a):
     if isinstance(a, _VALUE_TYPES):
         return (type(a), a)
@@ -434,7 +451,8 @@ class Program:
             call[i] = buf
         graph = torch.cuda.CUDAGraph()
         record = _Record()
-        with _recording(record), torch.no_grad(), torch.cuda.graph(graph):
+        with _gc_paused(), _recording(record), torch.no_grad(), \
+                torch.cuda.graph(graph):
             out = self.fn(*call, **kwargs)
         self.captures += 1
         statics = ([a for i, a in enumerate(args) if i not in idx],

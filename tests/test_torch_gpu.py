@@ -1002,6 +1002,110 @@ def test_dia_kernel_gives_the_reference_nans(cuda, dtype):
     assert op.rebuilds == 0
 
 
+def _same_bits(got, want):
+    """Equal NaN positions, and every other entry equal bit for bit."""
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan]), float(
+        (got[~nan] - want[~nan]).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_dia_fused_forms_give_the_eager_bits(cuda, dtype):
+    """K1's Jacobi form against x + (w / d) * (b - K1(x)) and its residual
+    form against b - K1(x), bit for bit (each step rounds as the eager
+    chain does): on the 40^2 Laplacian (its layout needs no state) and
+    its fast Ac (it does), each layout in the warp-per-tile and the split
+    form, with A's diagonal and a trained D; and with +inf, -inf and NaN
+    in x at columns some rows reach only through a skipped segment: the
+    NaN rows the eager chain's, the rest bit for bit, the state zeroed.
+    Through the operator (`jacobi`, `residual`) each sweep and residual
+    is one launch, counted in `launches` and `fused_launches`."""
+    from chip_smoke import nonfinite_probe
+    from gnnla_tpu_torch.models import jacobi, residual
+    from gnnla_tpu_torch.ops.dia_spmv import (dia_kernel_operator,
+                                              dia_tiles_spmv_cuda,
+                                              dia_tiles_update_cuda)
+
+    _, fast = _fast(40, cuda)
+    seen = set()
+    for seed, A in enumerate((fast.A, fast.Ac)):
+        op = dia_kernel_operator(A.plain(), diag_dtype=dtype)
+        b, x = _rand(op.n, seed, cuda), _rand(op.n, seed + 10, cuda)
+        trained = op.diagonal() * (1.0 + 0.3 * _rand(op.n, seed + 20,
+                                                       cuda).abs())
+        xs = [x]
+        cols, _ = nonfinite_probe(op.tiles, 3, seed)
+        if cols:
+            xs.append(x.clone())
+            xs[1][cols] = torch.tensor(
+                [float("inf"), float("-inf"), float("nan")], device=cuda)
+        for split in (False, True):
+            tiles = op.tiles._replace(split=split)
+            seen.add((split, tiles.repair, len(xs)))
+            for xx in xs:
+                y = dia_tiles_spmv_cuda(tiles, xx)
+                for d in (op.diagonal(), trained):
+                    _same_bits(dia_tiles_update_cuda(tiles, xx, b, d, 0.7),
+                               xx + (0.7 / d) * (b - y))
+                _same_bits(dia_tiles_update_cuda(tiles, xx, b), b - y)
+                assert tiles.state.tolist() == [0, 0]
+        want = x
+        for _ in range(3):
+            want = want + (0.7 / trained) * (b - op.matvec(want))
+        before = (op.launches, op.fused_launches)
+        got = jacobi(op, b, x, omega=0.7, n_iters=3, diag=trained)
+        r = residual(op, b, x)
+        _same_bits(got, want)
+        _same_bits(r, b - op.matvec(x))
+        assert (op.launches, op.fused_launches) == (before[0] + 5,
+                                                    before[1] + 4)
+    assert seen == {(False, False, 1), (True, False, 1), (False, True, 2),
+                    (True, True, 2)}
+
+
+def test_fused_mg_pcg_program_gives_the_unfused_bits(cuda, monkeypatch):
+    """The 2-D SA mg_pcg as a program (captured, then replayed) with K1's
+    fused forms gives the unfused solve's x and history bit for bit, with
+    the same K1 launches per level: the fused ones replace plain ones one
+    for one, 3 a cycle on each K1 level that smooths, one cycle more than
+    iterations, and none at the coarsest."""
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+    from gnnla_tpu_torch.utils.program import program
+
+    mg, b, x0, kw = _sa_solve(cuda, 7)
+    k1 = [a for a in mg.As if isinstance(a, DiaKernelOperator)]
+    last = mg.As[-1]
+    assert len(k1) >= 2 and mg.As[0] is k1[0]
+    runs = {}
+    for fused in (True, False):
+        if not fused:
+            monkeypatch.setattr(DiaKernelOperator, "fuses",
+                                lambda self, *v: False)
+        for a in k1:
+            a.launches = a.fused_launches = 0
+        prog = program(mg_pcg)
+        outs = [prog(mg, b, x0, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert (prog.captures, prog.replays) == (1, 2)
+        for x, hist in outs[1:]:
+            assert torch.equal(x, outs[0][0]) and torch.equal(
+                hist, outs[0][1])
+        runs[fused] = (outs[0], [(a.launches, a.fused_launches)
+                                 for a in k1])
+    (x_f, h_f), counts_f = runs[True]
+    (x_u, h_u), counts_u = runs[False]
+    assert torch.equal(x_f, x_u) and torch.equal(h_f, h_u)
+    cycles = 3 * (kw["n_iters"] + 1)  # three calls
+    assert [c[0] for c in counts_f] == [c[0] for c in counts_u]
+    assert [c[1] for c in counts_u] == [0] * len(k1)
+    assert [c[1] for c in counts_f] == [
+        0 if a is last else 3 * cycles for a in k1]
+
+
 # ---------------------------------------------------------- the GN forms
 _GN = {}
 
@@ -1761,6 +1865,30 @@ def test_a_failing_capture_raises(cuda):
                        capture_output=True, text=True, timeout=120)
     # torch raises its AcceleratorError, a RuntimeError
     assert p.stdout.strip() == "raised", (p.stdout, p.stderr[-2000:])
+
+
+def test_no_cyclic_gc_runs_inside_a_capture(cuda):
+    """A program captures with Python's cyclic garbage collector off, and
+    leaves it on after: a collection inside the capture could free
+    another program's graph held in a reference cycle (a `StencilVCycle`
+    and its program), which invalidates the capture."""
+    import gc
+
+    from gnnla_tpu_torch.utils.program import program
+
+    seen = []
+
+    def body(x):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+        return x * 2.0
+
+    run = program(body)
+    x = _rand(64, 11, cuda)
+    assert gc.isenabled()
+    run(x)
+    _close(run(x), x * 2.0)
+    assert seen == [False] and gc.isenabled()
 
 
 # ------------------------------------------------------------------ spans

@@ -214,11 +214,13 @@ def test_two_level_multigrid_matches_vcycle():
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_dia_hierarchy_matches(case):
+def test_dia_hierarchy_matches(case, monkeypatch):
     """setup_with_dia_multigrid swaps the same levels to DIA with the same
     diagonals; kernel=True puts exactly those on K1; mg_pcg on them
     follows JAX's (JAX's own tests hold its DIA hierarchy to its COO
-    one)."""
+    one). Each K1 level that smooths runs its two sweeps and its residual
+    through K1's fused forms, 3 calls a V(1,1) cycle, one cycle more than
+    iterations; a K1 coarsest level (Chebyshev) none."""
     s_j, s_t = hierarchies("sa", case)
     # one diagonal fewer than the widest level has: that level keeps COO
     cap = max(len(to_dia(a, None).offsets) for a in s_t.As) - 1
@@ -234,13 +236,23 @@ def test_dia_hierarchy_matches(case):
             assert a_t.offsets == a_k.offsets == a_j.offsets
             np.testing.assert_array_equal(a_t.diags.numpy(),
                                           np.asarray(a_j.diags))
+    fused = {id(a): 0 for a in k_t.As}
+    for name in ("jacobi_sweep", "residual"):
+        def counted(self, *args, _real=getattr(DiaKernelOperator, name)):
+            fused[id(self)] += 1
+            return _real(self, *args)
+        monkeypatch.setattr(DiaKernelOperator, name, counted)
     x_j, h_j = jax_mg_pcg("sa", case)
     n = s_t.As[0].n_rows
     x_t, h_t = tk.mg_pcg(k_t, torch.from_numpy(vec(n, 6)), torch.zeros(n),
                          n_iters=15, flip_sign=case == "lap32")
     assert_history(h_t, h_j, vec(n, 6))
     assert_close(x_t, x_j)
-    assert all(a.launches == 0 for a in k_t.As
+    last = k_t.n_levels - 1
+    assert [fused[id(a)] for a in k_t.As] == [
+        3 * 16 if k1 and lvl < last else 0
+        for lvl, k1 in enumerate(is_dia)]
+    assert all(a.launches == a.fused_launches == 0 for a in k_t.As
                if isinstance(a, DiaKernelOperator))
 
 
