@@ -852,50 +852,29 @@ def k2_fields(csr) -> dict:
                 long_rows=csr.long_rows)
 
 
-def dia_raw(lib, tiles, x: torch.Tensor):
+def dia_raw(lib, tiles, x: torch.Tensor, b: torch.Tensor = None,
+            d: torch.Tensor = None):
     """(raw launch of K1 on the compact layout `tiles` (f32 or bf16
-    values) and x, bytes, flops): the segments, their offsets and
-    pointers and x read once, y written once; 2 flops per stored value."""
-    y = torch.empty(tiles.n, device=x.device)
+    values) and x, bytes, flops): plain, or with b the residual form, with
+    b and d the Jacobi form (omega 0.7). The layout, x, b and d read once,
+    the result written once; 2 flops per stored value and, per row, 1
+    (b - y) in the residual form, 5 (rcp, scale, b - y, w * r, x + t) in
+    the Jacobi form."""
+    out = torch.empty(tiles.n, device=x.device)
     fn = (lib.dia_spmv_f32 if tiles.seg_vals.dtype == torch.float32
           else lib.dia_spmv_bf16)
     stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [None if v is None else v.data_ptr() for v in (x, b, d)]
 
     def raw():
         _build.check(fn(tiles.seg_ptr.data_ptr(), tiles.seg_off.data_ptr(),
                         tiles.seg_vals.data_ptr(), tiles.n, int(tiles.split),
                         tiles.offsets.data_ptr(), tiles.offsets.shape[0],
                         tiles.state.data_ptr() if tiles.repair else None,
-                        x.data_ptr(), y.data_ptr(), stream), "K1 raw")
-    return (raw, tiles.nbytes + 2 * tiles.n * 4,
-            2 * tiles.seg_vals.numel())
-
-
-def dia_update_raw(lib, tiles, x: torch.Tensor, b: torch.Tensor,
-                   d: torch.Tensor = None):
-    """(raw launch of K1's Jacobi form (with d, omega 0.7) or residual form
-    (without) on the compact layout `tiles`, bytes, flops): the layout, x,
-    b and d read once, the result written once; 2 flops per stored value
-    and 5 (rcp, scale, b - y, w * r, x + t) or 1 (b - y) per row."""
-    out = torch.empty(tiles.n, device=x.device)
-    f32 = tiles.seg_vals.dtype == torch.float32
-    stream = torch.cuda.current_stream().cuda_stream
-    head = (tiles.seg_ptr.data_ptr(), tiles.seg_off.data_ptr(),
-            tiles.seg_vals.data_ptr(), tiles.n, int(tiles.split),
-            tiles.offsets.data_ptr(), tiles.offsets.shape[0],
-            tiles.state.data_ptr() if tiles.repair else None, x.data_ptr(),
-            b.data_ptr())
-    if d is None:
-        fn = lib.dia_residual_f32 if f32 else lib.dia_residual_bf16
-        tail = (out.data_ptr(), stream)
-    else:
-        fn = lib.dia_jacobi_f32 if f32 else lib.dia_jacobi_bf16
-        tail = (d.data_ptr(), 0.7, out.data_ptr(), stream)
-
-    def raw():
-        _build.check(fn(*head, *tail), "K1 fused raw")
-    n_vecs, per_row = (3, 1) if d is None else (4, 5)
-    return (raw, tiles.nbytes + n_vecs * tiles.n * 4,
+                        *ptrs, 0.7, out.data_ptr(), stream), "K1 raw")
+    n_read = sum(p is not None for p in ptrs)
+    per_row = 0 if b is None else 1 if d is None else 5
+    return (raw, tiles.nbytes + (n_read + 1) * tiles.n * 4,
             2 * tiles.seg_vals.numel() + per_row * tiles.n)
 
 
@@ -948,7 +927,7 @@ def sa_fused_rows(mg, tag: str, lib, flush) -> list:
             np.float32)).to(d.device) for _ in range(2))
         k1_raw, _, _ = dia_raw(lib, op.tiles, x)
         for form, (_, eager) in sa_fused_forms(op, d, x, b).items():
-            raw, bytes_moved, flops = dia_update_raw(
+            raw, bytes_moved, flops = dia_raw(
                 lib, op.tiles, x, b, d if form == "jacobi" else None)
             ms = cold_ms_turns(dict(fused=raw, unfused=eager, k1=k1_raw),
                                20, flush)

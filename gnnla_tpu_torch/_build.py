@@ -111,14 +111,8 @@ def load(force: bool = False) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.dia_spmv_f32, lib.dia_spmv_bf16):
         fn.restype = ci
-        fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp, vp, vp]
-    for fn in (lib.dia_jacobi_f32, lib.dia_jacobi_bf16):
-        fn.restype = ci
         fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp, vp, vp,
                        ctypes.c_float, vp, vp]
-    for fn in (lib.dia_residual_f32, lib.dia_residual_bf16):
-        fn.restype = ci
-        fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp, vp, vp, vp]
     lib.csr_spmv_f32.restype = ci
     lib.csr_spmv_f32.argtypes = [vp, vp, vp, ci, vp, ci, ci, vp, vp, vp]
     lib.csr_spmm_f32.restype = ci

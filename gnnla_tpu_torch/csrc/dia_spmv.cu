@@ -78,20 +78,23 @@
 // b - y, w * r and x + t after it (and omega / d, two more kernels, at
 // each call), the residual b - A x one b - y. As PyTorch kernels those
 // passes each read two or three vectors and write one, and on the small
-// levels they are launch-bound. Two more forms of the kernel apply the
-// update to row i's sum while it is in a register, so a sweep or a
-// residual is one launch that reads x, b (and d) once and writes one
-// vector, `out`:
+// levels they are launch-bound. So the kernel applies an update to row
+// i's sum while it is in a register, and a sweep or a residual is one
+// launch that reads x, b (and d) once and writes one vector, `out`:
+//   * plain: out[i] = acc_i (y = A x);
 //   * Jacobi: out[i] = x[i] + w_i (b[i] - acc_i), w_i = rn(rcp(d[i]) omega);
 //   * residual: out[i] = b[i] - acc_i.
 // Each rounds step by step as the eager chain does (the _rn intrinsics
 // keep the compiler from contracting a product and a sum into an FMA):
 // rcp(d) then * omega is torch's `omega / d` (`d.reciprocal() * omega`),
 // then b - y, w * r and x + t; so on the same sums the fused forms give
-// the eager chain's bits. Both come in the warp-per-tile and the split
-// shape, over the same `walk` and `finish`. `out` is never x or b: other
-// rows read x at shifted offsets. The non-finite repair writes NaN into
-// `out`'s rows, which is what the eager chain gives for a NaN y.
+// the eager chain's bits. There is one body per shape (warp-per-tile,
+// split), templated on the update, and one launcher; each form and shape
+// keeps a kernel name of its own for traces. One C entry per storage
+// takes every form: the operands pick it (no b: plain; b: residual; b and
+// d: Jacobi). `out` is never x or b: other rows read x at shifted
+// offsets. The non-finite repair writes NaN into `out`'s rows, which is
+// what the eager chain gives for a NaN y.
 //
 // The gradient needs no other kernel: x's cotangent is this kernel on the
 // compact layout of the transposed diagonals (ops/dia.py::dia_transpose),
@@ -217,53 +220,18 @@ __device__ __forceinline__ void finish(bool bad, const Layout<D>& L,
   }
 }
 
-// REPAIR: the layout has a `state` (the host picks the instantiation, so
-// a layout that needs no repair runs no epilogue at all).
-template <typename D, bool REPAIR>
-__global__ void __launch_bounds__(kWarps * kTile)
-dia_tiles_kernel(Layout<D> L, int n_tiles, const float* __restrict__ x,
-                 float* __restrict__ y) {
-  const int lane = threadIdx.x & (kTile - 1);
-  const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int i = tile * kTile + lane;
-  if (tile < n_tiles) {  // whole warps
-    const float acc = walk<D>(L.seg_off, L.seg_vals, __ldg(L.seg_ptr + tile),
-                              __ldg(L.seg_ptr + tile + 1), i, L.n, x, lane);
-    if (i < L.n) y[i] = acc;
+// The updates (see the header): row i's new value from its sum. `load`
+// fetches the row's own operands before the walk, so that their loads are
+// in flight with the walk's and not one more round trip after it; `apply`
+// forms the new value from them and the sum.
+struct PlainUpdate {
+  struct Row {};
+  __device__ __forceinline__ Row load(int, const float*) const { return {}; }
+  __device__ __forceinline__ float apply(const Row&, float acc) const {
+    return acc;
   }
-  if (REPAIR) finish<D>(i < L.n && !isfinite(__ldg(x + i)), L, x, y);
-}
+};
 
-template <typename D, bool REPAIR>
-__global__ void __launch_bounds__(kSplitWarps * kTile)
-dia_tiles_split_kernel(Layout<D> L, const float* __restrict__ x,
-                       float* __restrict__ y) {
-  __shared__ float part[kSplitWarps][kTile];
-  const int lane = threadIdx.x & (kTile - 1);
-  const int warp = threadIdx.x >> 5;
-  const int tile = blockIdx.x;
-  const int i = tile * kTile + lane;
-  const int start = __ldg(L.seg_ptr + tile);
-  const int end = __ldg(L.seg_ptr + tile + 1);
-  const int run = (end - start + kSplitWarps - 1) / kSplitWarps;
-  const int s0 = min(end, start + warp * run);
-  const int s1 = min(end, s0 + run);
-  part[warp][lane] = walk<D>(L.seg_off, L.seg_vals, s0, s1, i, L.n, x, lane);
-  __syncthreads();
-  if (warp == 0) {
-    float acc = part[0][lane];
-#pragma unroll
-    for (int w = 1; w < kSplitWarps; ++w) acc += part[w][lane];
-    if (i < L.n) y[i] = acc;
-  }
-  if (REPAIR)
-    finish<D>(warp == 0 && i < L.n && !isfinite(__ldg(x + i)), L, x, y);
-}
-
-// The vertex updates (see the header): row i's new value from its sum.
-// `load` fetches the row's own operands before the walk, so that their
-// loads are in flight with the walk's and not one more round trip after
-// it; `apply` forms the new value from them and the sum.
 struct JacobiUpdate {
   const float* b;
   const float* d;
@@ -293,16 +261,18 @@ struct ResidualUpdate {
   }
 };
 
-// dia_tiles_kernel's body with the update U applied to each row's sum.
+// Warp-per-tile shape: one warp per tile, lane = row, U applied to each
+// row's sum. REPAIR: the layout has a `state` (the host picks the
+// instantiation, so a layout that needs no repair runs no epilogue).
 template <typename D, bool REPAIR, typename U>
-__device__ __forceinline__ void tiles_update(const Layout<D>& L, int n_tiles,
-                                             const float* __restrict__ x,
-                                             const U& u,
-                                             float* __restrict__ out) {
+__device__ __forceinline__ void tiles_body(const Layout<D>& L, int n_tiles,
+                                           const float* __restrict__ x,
+                                           const U& u,
+                                           float* __restrict__ out) {
   const int lane = threadIdx.x & (kTile - 1);
   const int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int i = tile * kTile + lane;
-  if (tile < n_tiles) {
+  if (tile < n_tiles) {  // whole warps
     typename U::Row row{};
     if (i < L.n) row = u.load(i, x);
     const float acc = walk<D>(L.seg_off, L.seg_vals, __ldg(L.seg_ptr + tile),
@@ -312,12 +282,13 @@ __device__ __forceinline__ void tiles_update(const Layout<D>& L, int n_tiles,
   if (REPAIR) finish<D>(i < L.n && !isfinite(__ldg(x + i)), L, x, out);
 }
 
-// dia_tiles_split_kernel's body with the update U applied to each row's sum.
+// Split shape: a block of 8 warps per tile, each walking one run of its
+// segments; warp 0 adds the partial sums in warp order and applies U.
 template <typename D, bool REPAIR, typename U>
-__device__ __forceinline__ void split_update(const Layout<D>& L,
-                                             const float* __restrict__ x,
-                                             const U& u,
-                                             float* __restrict__ out) {
+__device__ __forceinline__ void split_body(const Layout<D>& L,
+                                           const float* __restrict__ x,
+                                           const U& u,
+                                           float* __restrict__ out) {
   __shared__ float part[kSplitWarps][kTile];
   const int lane = threadIdx.x & (kTile - 1);
   const int warp = threadIdx.x >> 5;
@@ -342,20 +313,34 @@ __device__ __forceinline__ void split_update(const Layout<D>& L,
     finish<D>(warp == 0 && i < L.n && !isfinite(__ldg(x + i)), L, x, out);
 }
 
-// One name per form, so that a trace tells them apart; each holds
-// "dia_tiles", which the benchmark's K1 readers match.
+// One name per form and shape, so that a trace tells them apart; each
+// holds "dia_tiles", which the benchmark's K1 readers match.
+template <typename D, bool REPAIR>
+__global__ void __launch_bounds__(kWarps * kTile)
+dia_tiles_kernel(Layout<D> L, int n_tiles, const float* __restrict__ x,
+                 float* __restrict__ y) {
+  tiles_body<D, REPAIR>(L, n_tiles, x, PlainUpdate{}, y);
+}
+
+template <typename D, bool REPAIR>
+__global__ void __launch_bounds__(kSplitWarps * kTile)
+dia_tiles_split_kernel(Layout<D> L, const float* __restrict__ x,
+                       float* __restrict__ y) {
+  split_body<D, REPAIR>(L, x, PlainUpdate{}, y);
+}
+
 template <typename D, bool REPAIR>
 __global__ void __launch_bounds__(kWarps * kTile)
 dia_tiles_jacobi_kernel(Layout<D> L, int n_tiles, const float* __restrict__ x,
                         JacobiUpdate u, float* __restrict__ out) {
-  tiles_update<D, REPAIR>(L, n_tiles, x, u, out);
+  tiles_body<D, REPAIR>(L, n_tiles, x, u, out);
 }
 
 template <typename D, bool REPAIR>
 __global__ void __launch_bounds__(kSplitWarps * kTile)
 dia_tiles_split_jacobi_kernel(Layout<D> L, const float* __restrict__ x,
                               JacobiUpdate u, float* __restrict__ out) {
-  split_update<D, REPAIR>(L, x, u, out);
+  split_body<D, REPAIR>(L, x, u, out);
 }
 
 template <typename D, bool REPAIR>
@@ -363,20 +348,40 @@ __global__ void __launch_bounds__(kWarps * kTile)
 dia_tiles_residual_kernel(Layout<D> L, int n_tiles,
                           const float* __restrict__ x, ResidualUpdate u,
                           float* __restrict__ out) {
-  tiles_update<D, REPAIR>(L, n_tiles, x, u, out);
+  tiles_body<D, REPAIR>(L, n_tiles, x, u, out);
 }
 
 template <typename D, bool REPAIR>
 __global__ void __launch_bounds__(kSplitWarps * kTile)
 dia_tiles_split_residual_kernel(Layout<D> L, const float* __restrict__ x,
                                 ResidualUpdate u, float* __restrict__ out) {
-  split_update<D, REPAIR>(L, x, u, out);
+  split_body<D, REPAIR>(L, x, u, out);
 }
 
+// Each update's two kernels, for the launcher.
+template <typename D, bool R>
+auto tiles_kernel(PlainUpdate) { return dia_tiles_kernel<D, R>; }
+template <typename D, bool R>
+auto split_kernel(PlainUpdate) { return dia_tiles_split_kernel<D, R>; }
+template <typename D, bool R>
+auto tiles_kernel(JacobiUpdate) { return dia_tiles_jacobi_kernel<D, R>; }
+template <typename D, bool R>
+auto split_kernel(JacobiUpdate) { return dia_tiles_split_jacobi_kernel<D, R>; }
+template <typename D, bool R>
+auto tiles_kernel(ResidualUpdate) { return dia_tiles_residual_kernel<D, R>; }
+template <typename D, bool R>
+auto split_kernel(ResidualUpdate) {
+  return dia_tiles_split_residual_kernel<D, R>;
+}
+
+// The one launcher. The operands pick the form (no b: plain; b without d:
+// residual; both: Jacobi), the layout's shape (`split`) and repair (a
+// `state`) the form's kernel.
 template <typename D>
 int launch(const void* seg_ptr, const void* seg_off, const void* seg_vals,
            int n, int split, const void* offsets, int K, void* state,
-           const void* x, void* y, void* stream) {
+           const void* x, const void* b, const void* d, float omega,
+           void* out, void* stream) {
   if (n <= 0) return 0;
   if (state && (K < 1 || !offsets)) return (int)cudaErrorInvalidValue;
   const int n_tiles = (n - 1) / kTile + 1;
@@ -387,62 +392,30 @@ int launch(const void* seg_ptr, const void* seg_off, const void* seg_vals,
   const int blocks = split ? n_tiles : (n_tiles - 1) / kWarps + 1;
   const int threads = (split ? kSplitWarps : kWarps) * kTile;
   const float* xf = (const float*)x;
-  float* yf = (float*)y;
-  if (split && state)
-    dia_tiles_split_kernel<D, true><<<blocks, threads, 0, s>>>(L, xf, yf);
-  else if (split)
-    dia_tiles_split_kernel<D, false><<<blocks, threads, 0, s>>>(L, xf, yf);
-  else if (state)
-    dia_tiles_kernel<D, true><<<blocks, threads, 0, s>>>(L, n_tiles, xf, yf);
-  else
-    dia_tiles_kernel<D, false><<<blocks, threads, 0, s>>>(L, n_tiles, xf, yf);
-  return (int)cudaGetLastError();
-}
-
-// `launch` for the vertex-update forms: the same layout and form choice.
-template <typename D, typename U>
-int launch_update(const void* seg_ptr, const void* seg_off,
-                  const void* seg_vals, int n, int split, const void* offsets,
-                  int K, void* state, const void* x, U u, void* out,
-                  void* stream) {
-  if (n <= 0) return 0;
-  if (state && (K < 1 || !offsets)) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (n - 1) / kTile + 1;
-  cudaStream_t s = (cudaStream_t)stream;
-  const Layout<D> L{(const int*)seg_ptr, (const int*)seg_off,
-                    (const D*)seg_vals, (const int*)offsets, (int*)state, n,
-                    K};
-  const int blocks = split ? n_tiles : (n_tiles - 1) / kWarps + 1;
-  const int threads = (split ? kSplitWarps : kWarps) * kTile;
-  const float* xf = (const float*)x;
+  const float* bf = (const float*)b;
   float* of = (float*)out;
-  if constexpr (std::is_same<U, JacobiUpdate>::value) {
+  auto run = [&](auto u) {
+    auto go = [&](auto kernel, auto... shape) {
+      if constexpr (std::is_same<decltype(u), PlainUpdate>::value)
+        kernel<<<blocks, threads, 0, s>>>(L, shape..., xf, of);  // no u
+      else
+        kernel<<<blocks, threads, 0, s>>>(L, shape..., xf, u, of);
+    };
     if (split && state)
-      dia_tiles_split_jacobi_kernel<D, true><<<blocks, threads, 0, s>>>(
-          L, xf, u, of);
+      go(split_kernel<D, true>(u));
     else if (split)
-      dia_tiles_split_jacobi_kernel<D, false><<<blocks, threads, 0, s>>>(
-          L, xf, u, of);
+      go(split_kernel<D, false>(u));
     else if (state)
-      dia_tiles_jacobi_kernel<D, true><<<blocks, threads, 0, s>>>(
-          L, n_tiles, xf, u, of);
+      go(tiles_kernel<D, true>(u), n_tiles);
     else
-      dia_tiles_jacobi_kernel<D, false><<<blocks, threads, 0, s>>>(
-          L, n_tiles, xf, u, of);
-  } else {
-    if (split && state)
-      dia_tiles_split_residual_kernel<D, true><<<blocks, threads, 0, s>>>(
-          L, xf, u, of);
-    else if (split)
-      dia_tiles_split_residual_kernel<D, false><<<blocks, threads, 0, s>>>(
-          L, xf, u, of);
-    else if (state)
-      dia_tiles_residual_kernel<D, true><<<blocks, threads, 0, s>>>(
-          L, n_tiles, xf, u, of);
-    else
-      dia_tiles_residual_kernel<D, false><<<blocks, threads, 0, s>>>(
-          L, n_tiles, xf, u, of);
-  }
+      go(tiles_kernel<D, false>(u), n_tiles);
+  };
+  if (!b)
+    run(PlainUpdate{});
+  else if (!d)
+    run(ResidualUpdate{bf});
+  else
+    run(JacobiUpdate{bf, (const float*)d, omega});
   return (int)cudaGetLastError();
 }
 
@@ -452,67 +425,27 @@ int launch_update(const void* seg_ptr, const void* seg_off,
 // (f32 or bf16), offsets [K] int32 (the operator's sorted dense offsets),
 // state [2] int32 (zero before the first launch; each launch leaves it
 // zero) or null for a layout that skips no segment in range (no repair),
-// x [n] f32, y [n] f32, all on the current device, with n_tiles =
-// ceil(n / 32); `split` != 0 takes the split form; `stream` is a
-// cudaStream_t. Each returns cudaGetLastError().
+// x [n] f32, all on the current device, with n_tiles = ceil(n / 32);
+// `split` != 0 takes the split form. b [n] f32 or null, d [n] f32 (the
+// smoother's diagonal) or null, and omega pick the form: null b, out = A x;
+// b and null d, out = b - A x; both, out = x + rn(rcp(d) omega) (b - A x).
+// out [n] f32 is neither x nor b; `stream` is a cudaStream_t. Each returns
+// cudaGetLastError().
 extern "C" int dia_spmv_f32(const void* seg_ptr, const void* seg_off,
                             const void* seg_vals, int n, int split,
                             const void* offsets, int K, void* state,
-                            const void* x, void* y, void* stream) {
+                            const void* x, const void* b, const void* d,
+                            float omega, void* out, void* stream) {
   return launch<float>(seg_ptr, seg_off, seg_vals, n, split, offsets, K,
-                       state, x, y, stream);
+                       state, x, b, d, omega, out, stream);
 }
 
 extern "C" int dia_spmv_bf16(const void* seg_ptr, const void* seg_off,
                              const void* seg_vals, int n, int split,
                              const void* offsets, int K, void* state,
-                             const void* x, void* y, void* stream) {
-  return launch<__nv_bfloat16>(seg_ptr, seg_off, seg_vals, n, split, offsets,
-                               K, state, x, y, stream);
-}
-
-// The vertex-update forms, with the arguments of dia_spmv_* and: b [n] f32,
-// d [n] f32 (Jacobi: the smoother's diagonal) and omega, out [n] f32, a
-// buffer that is neither x nor b. Jacobi: out = x + rn(rcp(d) omega)
-// (b - A x); residual: out = b - A x.
-extern "C" int dia_jacobi_f32(const void* seg_ptr, const void* seg_off,
-                              const void* seg_vals, int n, int split,
-                              const void* offsets, int K, void* state,
-                              const void* x, const void* b, const void* d,
-                              float omega, void* out, void* stream) {
-  return launch_update<float>(seg_ptr, seg_off, seg_vals, n, split, offsets,
-                              K, state, x,
-                              JacobiUpdate{(const float*)b, (const float*)d,
-                                           omega},
-                              out, stream);
-}
-
-extern "C" int dia_jacobi_bf16(const void* seg_ptr, const void* seg_off,
-                               const void* seg_vals, int n, int split,
-                               const void* offsets, int K, void* state,
-                               const void* x, const void* b, const void* d,
-                               float omega, void* out, void* stream) {
-  return launch_update<__nv_bfloat16>(
-      seg_ptr, seg_off, seg_vals, n, split, offsets, K, state, x,
-      JacobiUpdate{(const float*)b, (const float*)d, omega}, out, stream);
-}
-
-extern "C" int dia_residual_f32(const void* seg_ptr, const void* seg_off,
-                                const void* seg_vals, int n, int split,
-                                const void* offsets, int K, void* state,
-                                const void* x, const void* b, void* out,
-                                void* stream) {
-  return launch_update<float>(seg_ptr, seg_off, seg_vals, n, split, offsets,
-                              K, state, x, ResidualUpdate{(const float*)b},
-                              out, stream);
-}
-
-extern "C" int dia_residual_bf16(const void* seg_ptr, const void* seg_off,
-                                 const void* seg_vals, int n, int split,
-                                 const void* offsets, int K, void* state,
-                                 const void* x, const void* b, void* out,
-                                 void* stream) {
-  return launch_update<__nv_bfloat16>(
-      seg_ptr, seg_off, seg_vals, n, split, offsets, K, state, x,
-      ResidualUpdate{(const float*)b}, out, stream);
+                             const void* x, const void* b, const void* d,
+                             float omega, void* out, void* stream) {
+  return launch<__nv_bfloat16>(seg_ptr, seg_off, seg_vals, n, split,
+                               offsets, K, state, x, b, d, omega, out,
+                               stream);
 }

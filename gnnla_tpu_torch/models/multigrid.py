@@ -30,8 +30,7 @@ from gnnla_tpu_torch.models.chebyshev import chebyshev
 from gnnla_tpu_torch.models.jacobi import jacobi
 from gnnla_tpu_torch.models.residual import residual
 from gnnla_tpu_torch.models.vcycle import setup_twogrid
-from gnnla_tpu_torch.ops.dia import DIAOperator, to_dia
-from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
+from gnnla_tpu_torch.ops.dia_spmv import dia_twin
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stream_op import (rect_stream_operator,
                                            stream_operator)
@@ -184,16 +183,7 @@ def setup_with_dia_multigrid(setup: MultigridSetup, max_offsets: int = 512,
     prolongation as a `RectStreamOperator` (CSRs of P and P^T). Each
     level's DIA layout is the stage `dia.layout`, each K2 twin's the
     stage `k2.layout`."""
-    @stage("dia.layout")
-    def try_dia(op):
-        if isinstance(op, SparseOperator):
-            try:
-                op = to_dia(op, max_offsets)
-            except ValueError:
-                return op  # too irregular — keep the COO path
-        if kernel and isinstance(op, DIAOperator):
-            op = dia_kernel_operator(op)
-        return op
+    on_dia = stage("dia.layout")(dia_twin)
 
     @stage("k2.layout")
     def on_k2(twin, op):
@@ -203,7 +193,7 @@ def setup_with_dia_multigrid(setup: MultigridSetup, max_offsets: int = 512,
         return tuple(on_k2(twin, op) if isinstance(op, SparseOperator)
                      else op for op in ops)
 
-    As = tuple(try_dia(a) for a in setup.As)
+    As = tuple(on_dia(a, max_offsets, kernel) for a in setup.As)
     if not kernel:
         return dataclasses.replace(setup, As=As)
     return dataclasses.replace(

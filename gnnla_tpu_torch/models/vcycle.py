@@ -53,7 +53,7 @@ from gnnla_tpu_torch.models.jacobi import jacobi
 from gnnla_tpu_torch.models.residual import residual
 from gnnla_tpu_torch.models.soc import soc_classic
 from gnnla_tpu_torch.ops.dia import DIAOperator, to_dia
-from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator
+from gnnla_tpu_torch.ops.dia_spmv import dia_kernel_operator, dia_twin
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stencil import stencil_classes
 from gnnla_tpu_torch.ops.stencil_kernel import (make_stencil_jacobi,
@@ -222,18 +222,9 @@ def setup_with_dia(setup: TwoGridSetup, max_offsets: int = 512,
     additionally puts both levels on kernel K1 (`DiaKernelOperator`), the
     counterpart of the JAX package's `pallas=True`. P stays as it is
     (rectangular; see `setup_with_stream_p`)."""
-    def try_dia(op):
-        if isinstance(op, SparseOperator):
-            try:
-                op = to_dia(op, max_offsets)
-            except ValueError:
-                return op  # too irregular — keep the COO path
-        if kernel and isinstance(op, DIAOperator):
-            op = dia_kernel_operator(op)
-        return op
-
-    return dataclasses.replace(setup, A=try_dia(setup.A),
-                               Ac=try_dia(setup.Ac))
+    return dataclasses.replace(setup,
+                               A=dia_twin(setup.A, max_offsets, kernel),
+                               Ac=dia_twin(setup.Ac, max_offsets, kernel))
 
 
 def setup_with_stream_p(setup: TwoGridSetup) -> TwoGridSetup:

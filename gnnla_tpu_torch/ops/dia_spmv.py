@@ -47,12 +47,12 @@ zeroed. So one layout must not run on two CUDA streams at once. A layout
 that skips no segment a row reaches in range (`DiaTiles.repair` False,
 as the Laplacian's) can need no repair, and its launches take no ticket.
 
-Two more forms of the kernel apply a multigrid level's vertex update to
-each row's sum in the same launch (`DiaKernelOperator.jacobi_sweep`, a
-Jacobi sweep x + (omega / d)(b - A x), and `.residual`, b - A x; see
+Given b (and d), the same launch applies a multigrid level's vertex
+update to each row's sum (`DiaKernelOperator.jacobi_sweep`, a Jacobi sweep
+x + (omega / d)(b - A x), and `.residual`, b - A x; see
 `csrc/dia_spmv.cu`): the passes over n-vectors that PyTorch would run after
-the SpMV, one kernel each, go. They round each step as the eager chain
-does, so they give its bits. They have no backward: `jacobi` and
+the SpMV, one kernel each, go. These forms round each step as the eager
+chain does, so they give its bits. They have no backward: `jacobi` and
 `residual` (`models/`) take them only when autograd needs nothing of the
 sweep (`DiaKernelOperator.fuses`).
 
@@ -69,7 +69,9 @@ import torch
 from torch.autograd import profiler as _profiler
 
 from gnnla_tpu_torch import _build
-from gnnla_tpu_torch.ops.dia import DIAOperator, dia_matvec, dia_transpose
+from gnnla_tpu_torch.ops.dia import (DIAOperator, dia_matvec, dia_transpose,
+                                     to_dia)
+from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.utils.program import count, guard, span_begin, span_end
 
 DIAG_DTYPES = (torch.float32, torch.bfloat16)
@@ -183,13 +185,26 @@ def _check_operands(tiles: DiaTiles, x: torch.Tensor) -> None:
              "inputs must be contiguous")
 
 
-def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1: y = A x for A's compact layout `tiles` (from `dia_tiles`)
-    and x [n] f32, all contiguous on one CUDA device."""
+def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor,
+                        b: Optional[torch.Tensor] = None,
+                        d: Optional[torch.Tensor] = None,
+                        omega: float = 0.0) -> torch.Tensor:
+    """Launch K1 into a new vector for A's compact layout `tiles` (from
+    `dia_tiles`) and x [n] f32: y = A x; with b, the residual form b - A x;
+    with b and d, the Jacobi form x + rn(rn(1 / d) * omega) * (b - A x),
+    each step rounded as the eager chain does. All contiguous on one CUDA
+    device, b and d [n] f32 vectors."""
     _check_operands(tiles, x)
+    if b is not None or d is not None:
+        _require(all(v is not None and v.device == x.device
+                     and v.dtype == torch.float32 and v.shape == x.shape
+                     and v.is_contiguous()
+                     for v in ((b,) if d is None else (b, d))),
+                 "b and d must be contiguous float32 vectors shaped as x, "
+                 "on x's device")
     ptr, off, vals = tiles.seg_ptr, tiles.seg_off, tiles.seg_vals
     offs, state, n = tiles.offsets, tiles.state, tiles.n
-    y = torch.empty_like(x)
+    out = torch.empty_like(x)
     lib = _build.load()
     fn, name = ((lib.dia_spmv_f32, "dia_spmv_f32")
                 if vals.dtype == torch.float32
@@ -199,42 +214,9 @@ def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor) -> torch.Tensor:
         _build.check(fn(ptr.data_ptr(), off.data_ptr(), vals.data_ptr(), n,
                         int(tiles.split), offs.data_ptr(), offs.shape[0],
                         state.data_ptr() if tiles.repair else None,
-                        x.data_ptr(), y.data_ptr(), stream), name)
-    return y
-
-
-def dia_tiles_update_cuda(tiles: DiaTiles, x: torch.Tensor, b: torch.Tensor,
-                          d: Optional[torch.Tensor] = None,
-                          omega: float = 0.0) -> torch.Tensor:
-    """Launch K1 with a vertex update, into a new vector: with `d`, the
-    Jacobi form x + rn(rn(1 / d) * omega) * (b - A x); without, the
-    residual form b - A x. b and d are [n] f32 vectors, contiguous on x's
-    device. Each step rounds as the eager chain does."""
-    _check_operands(tiles, x)
-    vecs = (b,) if d is None else (b, d)
-    _require(all(v.device == x.device and v.dtype == torch.float32
-                 and v.shape == x.shape and v.is_contiguous() for v in vecs),
-             "b and d must be contiguous float32 vectors shaped as x, on "
-             "x's device")
-    ptr, off, vals = tiles.seg_ptr, tiles.seg_off, tiles.seg_vals
-    offs = tiles.offsets
-    out = torch.empty_like(x)
-    lib = _build.load()
-    f32 = vals.dtype == torch.float32
-    args = (ptr.data_ptr(), off.data_ptr(), vals.data_ptr(), tiles.n,
-            int(tiles.split), offs.data_ptr(), offs.shape[0],
-            tiles.state.data_ptr() if tiles.repair else None, x.data_ptr(),
-            b.data_ptr())
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if d is None:
-            name = "dia_residual_f32" if f32 else "dia_residual_bf16"
-            status = getattr(lib, name)(*args, out.data_ptr(), stream)
-        else:
-            name = "dia_jacobi_f32" if f32 else "dia_jacobi_bf16"
-            status = getattr(lib, name)(*args, d.data_ptr(), float(omega),
-                                        out.data_ptr(), stream)
-        _build.check(status, name)
+                        x.data_ptr(), None if b is None else b.data_ptr(),
+                        None if d is None else d.data_ptr(), omega,
+                        out.data_ptr(), stream), name)
     return out
 
 
@@ -375,17 +357,7 @@ class DiaKernelOperator:
     def launch(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x with no autograd: K1 on a CUDA tensor (counted), the
         plain version on a CPU tensor."""
-        if x.device.type == "cpu":
-            return dia_matvec(self.diags, self.offsets, x)
-        # the host enqueue is a span while a profiler records
-        state = (span_begin("k1.launch", host_only=True)
-                 if _profiler._is_profiler_enabled else None)
-        try:
-            y = dia_tiles_spmv_cuda(self.layout(), x)
-            count(self, "launches")
-        finally:
-            span_end(state)
-        return y
+        return self._apply(x)
 
     def launch_t(self, ybar: torch.Tensor) -> torch.Tensor:
         """A^T ybar: K1 on the transposed layout (counted) on a CUDA
@@ -413,24 +385,31 @@ class DiaKernelOperator:
         """One Jacobi sweep x + (omega / d) * (b - A x), d the smoother's
         diagonal: K1's Jacobi form, one launch, on CUDA tensors; the same
         eager chain on CPU tensors. No autograd (see `fuses`)."""
-        if x.device.type == "cpu":
-            return x + (omega / d) * (b - self.launch(x))
-        return self._update(x, b, d, omega)
+        return self._apply(x, b, d, omega)
 
     def residual(self, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """b - A x: K1's residual form, one launch, on CUDA tensors; the
         eager difference on CPU tensors. No autograd (see `fuses`)."""
-        if x.device.type == "cpu":
-            return b - self.launch(x)
-        return self._update(x, b)
+        return self._apply(x, b)
 
-    def _update(self, x, b, d=None, omega=0.0) -> torch.Tensor:
+    def _apply(self, x, b=None, d=None, omega=0.0) -> torch.Tensor:
+        """A x, b - A x or x + (omega / d) * (b - A x) (as b and d are
+        given): one K1 launch on a CUDA tensor, counted, its host enqueue a
+        span while a profiler records; the plain version and the eager
+        chain on a CPU tensor."""
+        if x.device.type == "cpu":
+            y = dia_matvec(self.diags, self.offsets, x)
+            if b is None:
+                return y
+            return b - y if d is None else x + (omega / d) * (b - y)
+        update = () if b is None else (b, d, omega)
         state = (span_begin("k1.launch", host_only=True)
                  if _profiler._is_profiler_enabled else None)
         try:
-            out = dia_tiles_update_cuda(self.layout(), x, b, d, omega)
+            out = dia_tiles_spmv_cuda(self.layout(), x, *update)
             count(self, "launches")
-            count(self, "fused_launches")
+            if update:
+                count(self, "fused_launches")
         finally:
             span_end(state)
         return out
@@ -461,3 +440,18 @@ def dia_kernel_operator(dia: DIAOperator, diag_dtype=None,
     with no padded layout the two are one."""
     return DiaKernelOperator(dia.diags, dia.offsets, dia.n, dia.nnz,
                              diag_dtype, device)
+
+
+def dia_twin(op, max_offsets: int = 512, kernel: bool = False):
+    """`op` as its DIA twin where it is a COO `SparseOperator` banded
+    enough (`to_dia` refuses more than `max_offsets` diagonals; such an
+    operator stays COO), and with `kernel` a DIA operator on K1; any other
+    operator as it is."""
+    if isinstance(op, SparseOperator):
+        try:
+            op = to_dia(op, max_offsets)
+        except ValueError:
+            return op  # too irregular — keep the COO path
+    if kernel and isinstance(op, DIAOperator):
+        op = dia_kernel_operator(op)
+    return op

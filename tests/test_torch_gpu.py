@@ -98,6 +98,13 @@ def test_wrappers_refuse_bad_operands(cuda):
         dia_tiles_spmv_cuda(tiles, torch.ones(16, device=cuda)[::2])
     with pytest.raises(ValueError, match="disagree"):
         dia_tiles_spmv_cuda(tiles, torch.ones(9, device=cuda))
+    x, v = torch.ones(8, device=cuda), torch.ones(8, device=cuda)
+    for bad in (torch.ones(9, device=cuda), v.double(), v.cpu()):
+        for b, d in ((bad, None), (bad, v), (v, bad)):
+            with pytest.raises(ValueError, match="b and d"):
+                dia_tiles_spmv_cuda(tiles, x, b, d, 0.7)
+    with pytest.raises(ValueError, match="b and d"):
+        dia_tiles_spmv_cuda(tiles, x, None, v, 0.7)
     rp = torch.tensor([0, 1], dtype=torch.int32, device=cuda)
     cols = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
@@ -1026,8 +1033,7 @@ def test_dia_fused_forms_give_the_eager_bits(cuda, dtype):
     from chip_smoke import nonfinite_probe
     from gnnla_tpu_torch.models import jacobi, residual
     from gnnla_tpu_torch.ops.dia_spmv import (dia_kernel_operator,
-                                              dia_tiles_spmv_cuda,
-                                              dia_tiles_update_cuda)
+                                              dia_tiles_spmv_cuda)
 
     _, fast = _fast(40, cuda)
     seen = set()
@@ -1048,9 +1054,9 @@ def test_dia_fused_forms_give_the_eager_bits(cuda, dtype):
             for xx in xs:
                 y = dia_tiles_spmv_cuda(tiles, xx)
                 for d in (op.diagonal(), trained):
-                    _same_bits(dia_tiles_update_cuda(tiles, xx, b, d, 0.7),
+                    _same_bits(dia_tiles_spmv_cuda(tiles, xx, b, d, 0.7),
                                xx + (0.7 / d) * (b - y))
-                _same_bits(dia_tiles_update_cuda(tiles, xx, b), b - y)
+                _same_bits(dia_tiles_spmv_cuda(tiles, xx, b), b - y)
                 assert tiles.state.tolist() == [0, 0]
         want = x
         for _ in range(3):
