@@ -85,8 +85,10 @@ The stream leg of `AutoTwoGrid` (kernel K2 on a square RCM-ordered A):
                     matches the plain cycle (1e-4 of max|x|); ms/cycle,
                     the K2 row's times and a profile of one cycle. K2 on
                     A_rcm and A_rcm^T bitwise the CSR-order sum; on a
-                    power-law CSR (rows of 1 to 10,000 nonzeros, long rows
-                    summed by whole blocks) against its plain version.
+                    power-law CSR (rows of 1 to 10,000 nonzeros: over
+                    256 summed by whole blocks, 65 to 256 by warps)
+                    against its plain version, bitwise on its rows of at
+                    most 256, and flushed ms.
                     K2's backward: a scalar of matvec and of rmatvec
                     differentiated on the card (one K2 launch forward,
                     one on the other CSR backward) against the plain COO
@@ -173,11 +175,14 @@ The multilevel hierarchies and the Krylov solvers:
                     `setup_with_dia_multigrid(kernel=True)`: no COO operator
                     left, exact K2 launches in one V(1,1) cycle (3 on a
                     level `to_dia` refused, 8 at such a coarsest, 1 + 1 on
-                    each P); 3-D A1, A2, P0, P0^T, P1^T and 2-D P0, P0^T:
-                    K2 against its plain version and cuSPARSE, flushed,
-                    plain, COO-operator and cuSPARSE times beside the bound,
-                    and the share of rows and nonzeros in long rows (a
-                    `csr_spmv[SA<grid>.<key>]` row each). In that cycle
+                    each P); 3-D A1, A2, A3, P0, P0^T, P1^T, P2^T and 2-D
+                    P0, P0^T: K2 bitwise the CSR-order sum, against its
+                    plain version and cuSPARSE, flushed, plain,
+                    COO-operator and cuSPARSE times beside the bound, the
+                    share of rows and nonzeros in rows of more than 64,
+                    the row blocks with warp blocks and before them, and
+                    the warp blocks' rows (a `csr_spmv[SA<grid>.<key>]` row
+                    each). In that cycle
                     each K1 level that smooths makes 3 fused launches (its
                     two Jacobi sweeps and its residual), the coarsest none;
                     on each such level of both hierarchies, K1's Jacobi and
@@ -532,7 +537,8 @@ from gnnla_tpu_torch.ops.stencil_kernel import (TILES, StencilCall,
                                                 stencil_launches, tile_form)
 from gnnla_tpu_torch.ops.stream_op import (RectStreamOperator,
                                            StreamOperator, csr_pair)
-from gnnla_tpu_torch.ops.stream_spmv import (LONG_ROW, CsrSpMV,
+from gnnla_tpu_torch.ops.stream_spmv import (BLOCK_NNZ, BLOCK_ROWS,
+                                             LONG_ROW, WARP_ROW, CsrSpMV,
                                              csr_spmv_cuda, csr_spmv_plain,
                                              entry_rows, rcm_csr)
 from gnnla_tpu_torch.problems import laplacian_2d, laplacian_nd
@@ -845,10 +851,30 @@ def csr_raw(lib, csr, x: torch.Tensor):
                  + r_ * 4), 2 * csr.nnz
 
 
+def short_row_blocks(row_ptr: torch.Tensor,
+                     budget: int = BLOCK_NNZ) -> torch.Tensor:
+    """K2's row blocks before warp blocks: every row of more than LONG_ROW
+    nonzeros alone, the others in runs within one window of budget -
+    LONG_ROW nonzeros and one aligned run of BLOCK_ROWS rows."""
+    rp = row_ptr.long()
+    n = rp.shape[0] - 1
+    rows = torch.arange(n, device=rp.device)
+    long_ = rp.diff() > LONG_ROW
+    window = rp[:-1] // (budget - LONG_ROW)
+    cut = torch.ones(n, dtype=torch.bool, device=rp.device)
+    cut[1:] = (long_[1:] | long_[:-1] | (window[1:] != window[:-1])
+               | (rows[1:] % BLOCK_ROWS == 0))
+    return torch.cat([torch.nonzero(cut).reshape(-1),
+                      rows.new_full((1,), n)]).to(torch.int32)
+
+
 def k2_fields(csr) -> dict:
     """A K2 row's fields beside its times: the row blocks one CUDA block
-    each takes, and the rows a whole block sums."""
+    each takes (and as many before warp blocks), the rows and nonzeros of
+    the warp blocks, and the rows a whole block sums."""
     return dict(row_blocks=csr.row_blocks.shape[0] - 1,
+                row_blocks_before=short_row_blocks(csr.row_ptr).shape[0] - 1,
+                warp_rows=csr.warp_rows, warp_nnz=csr.warp_nnz,
                 long_rows=csr.long_rows)
 
 
@@ -993,7 +1019,8 @@ def nonfinite_probe(tiles, n_cols: int, seed: int):
 def power_law_csr(n: int, seed: int):
     """A scipy CSR with Zipf row lengths from 1 to 10,000 (one row of each
     pinned), columns anywhere (distinct in a row), normal values: K2's
-    long rows, summed by whole blocks."""
+    long rows, summed by whole blocks, and rows of 65 to 256 nonzeros, by
+    warps."""
     import scipy.sparse as sp
     rng = np.random.default_rng(seed)
     lens = np.minimum(rng.zipf(1.6, n), 10_000)
@@ -1004,6 +1031,31 @@ def power_law_csr(n: int, seed: int):
     starts = np.concatenate([[0], np.cumsum(lens)])
     for r in long_:  # distinct columns where duplicates would be many
         cols[starts[r]:starts[r + 1]] = rng.choice(n, lens[r], replace=False)
+    A = sp.csr_matrix((rng.standard_normal(rows.size).astype(np.float32),
+                       (rows, cols)), shape=(n, n))
+    A.sort_indices()
+    return A
+
+
+def sa_coarse_csr(n: int, seed: int):
+    """A scipy CSR shaped as the 3-D SA hierarchy's second coarse level:
+    rows of 33 to 120 nonzeros, runs of 1 to 40 rows longer than 64 (K2's
+    warp blocks) between runs of 1 to 30 shorter ones, distinct columns in
+    a band of 600 around the diagonal, normal values."""
+    import scipy.sparse as sp
+    rng = np.random.default_rng(seed)
+    lens, long_ = [], True
+    while len(lens) < n:
+        k = int(rng.integers(1, 41 if long_ else 31))
+        lens += (rng.integers(65, 121, k) if long_
+                 else rng.integers(33, 65, k)).tolist()
+        long_ = not long_
+    lens = np.asarray(lens[:n])
+    rows = np.repeat(np.arange(n), lens)
+    lo = np.clip(np.arange(n) - 300, 0, max(n - 600, 0))
+    cols = np.concatenate([a + rng.choice(min(n, a + 600) - a, k,
+                                          replace=False)
+                           for a, k in zip(lo, lens)])
     A = sp.csr_matrix((rng.standard_normal(rows.size).astype(np.float32),
                        (rows, cols)), shape=(n, n))
     A.sort_indices()
@@ -1394,18 +1446,26 @@ def stream_path(A, flush, smi) -> list:
         errs[key]["bitwise_csr_order"] = bool(torch.equal(
             csr(xk), csr_sequential(csr, xk[:, None])[:, 0]))
         require(errs[key]["bitwise_csr_order"], (key, errs[key]))
-    # long rows (a whole block sums each): a power-law pattern, rows of 1
-    # to 10,000 nonzeros, against the plain version
+    # long rows (a whole block sums each) and rows of 65 to 256 (a warp
+    # each): a power-law pattern, rows of 1 to 10,000 nonzeros, against the
+    # plain version; its rows of at most 256 bitwise; the kernel flushed
     pl = CsrSpMV(power_law_csr(100_000, 31), device=dev)
     xp = torch.from_numpy(np.random.default_rng(37).standard_normal(
         pl.shape[1]).astype(np.float32)).to(dev)
     lens = pl.row_ptr.diff()
-    power_law = dict(compare(pl(xp), pl.plain(xp), "K2 on a power-law CSR"),
+    yp = pl(xp)
+    upto = lens <= WARP_ROW
+    raw, _, _ = csr_raw(_build.load(), pl, xp)
+    power_law = dict(compare(yp, pl.plain(xp), "K2 on a power-law CSR"),
                      rows=pl.shape[0], nnz=pl.nnz, **k2_fields(pl),
-                     min_row=int(lens.min()), max_row=int(lens.max()))
+                     min_row=int(lens.min()), max_row=int(lens.max()),
+                     bitwise_upto_warp_row=bool(torch.equal(
+                         yp[upto], csr_sequential(pl, xp[:, None])[upto, 0])),
+                     ms=cuda_ms_cold(raw, 20, flush))
     require(power_law["long_rows"] > 0 and power_law["max_row"] == 10_000
-            and power_law["min_row"] == 1, power_law)
-    del pl, xp, lens
+            and power_law["min_row"] == 1 and power_law["warp_rows"] > 0
+            and power_law["bitwise_upto_warp_row"], power_law)
+    del pl, xp, lens, yp, upto, raw
 
     b = torch.from_numpy(
         np.random.default_rng(3).standard_normal(n).astype(np.float32)
@@ -2269,7 +2329,8 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
 
 # the operators of the solve cells' SA hierarchies that run on K2, keyed
 # "A<l>" (a level `to_dia` refused), "P<l>" and "P<l>T"
-SA_K2_SHAPES = (("3d", (128, 128, 128), ("A1", "A2", "P0", "P0T", "P1T")),
+SA_K2_SHAPES = (("3d", (128, 128, 128), ("A1", "A2", "A3", "P0", "P0T",
+                                          "P1T", "P2T")),
                 ("2d", (2048, 2048), ("P0", "P0T")))
 
 
@@ -2328,6 +2389,10 @@ def sa_k2_phase(lib, flush, smi) -> list:
                 np.float32)).to(dev)
             y = csr(x)
             err = compare(y, csr.plain(x), f"K2 on SA{tag}.{key}")
+            # every row at most WARP_ROW long: bitwise the CSR-order sum
+            err["bitwise_csr_order"] = bool(torch.equal(
+                y, csr_sequential(csr, x[:, None])[:, 0]))
+            require(err["bitwise_csr_order"], (tag, key, err))
             lib_mat = csr_tensor(csr)
             compare(lib_mat @ x, y, f"cuSPARSE yardstick of SA{tag}.{key}")
             raw, bytes_moved, flops = csr_raw(lib, csr, x)
@@ -2339,6 +2404,7 @@ def sa_k2_phase(lib, flush, smi) -> list:
                 source=K2_ROW[1], replaces=K2_ROW[2],
                 launches_per_cycle=per_cycle,
                 max_abs_err=err["max_abs_err"],
+                bitwise_csr_order=err["bitwise_csr_order"],
                 ms=cuda_ms_cold(raw, 20, flush),
                 plain_ms=cuda_ms_cold(lambda: csr.plain(x), 5, flush),
                 coo_ms=cuda_ms_cold(lambda: coo(x), 10, flush),
@@ -2362,6 +2428,8 @@ def sa_k2_phase(lib, flush, smi) -> list:
               rows=[{k: r[k] for k in ("name", "ms", "bound_ms", "plain_ms",
                                         "coo_ms", "library_ms",
                                         "long_row_share", "long_nnz_share",
+                                        "row_blocks", "row_blocks_before",
+                                        "warp_rows", "bitwise_csr_order",
                                         "unfused_ms", "k1_ms") if k in r}
                     for r in rows_out], nvidia_smi=smi))
     return rows_out

@@ -542,7 +542,8 @@ def bench_general(n: int, extra: dict, dev: torch.device, A=None):
     extra["general_graph_build_seconds"] = build_s
     extra["general_graph_slot_waste"] = 1.0
     log(f"K2 build:        {build_s:.1f}s row_blocks={n_blocks} "
-        f"long_rows={mv.long_rows} slot_waste=1.00x (CSR)")
+        f"warp_rows={mv.warp_rows} long_rows={mv.long_rows} "
+        "slot_waste=1.00x (CSR)")
     extra["general_graph_nnz"] = int(A.nnz)
     extra["general_graph_n"] = int(n)
 
@@ -573,7 +574,7 @@ def bench_general(n: int, extra: dict, dev: torch.device, A=None):
                wrapper=mv, plain=mv.plain, library=lambda x: lib @ x, x=xt,
                bytes_moved=bytes_total,
                flops=2 * mv.nnz, wall_ms=mv.nnz / eps * 1e3,
-               row_blocks=n_blocks)
+               row_blocks=n_blocks, warp_rows=mv.warp_rows)
 
     # reference execution model on the same matrix
     xx = x.copy()

@@ -18,8 +18,10 @@
 // warp's column and value reads are strided by the row lengths. Here the
 // rows are cut once per CSR into row blocks (ops/stream_spmv.py::
 // csr_row_blocks): runs of consecutive rows whose nonzeros fit a budget
-// of kBudget, at most kThreads rows, and alone any row longer than
-// kLongRow. One CUDA block takes one row block:
+// of kBudget, at most kThreads rows; warp blocks, each a row of kLongRow
+// + 1 to kWarpRow nonzeros and up to kWarps - 1 rows after it; and alone
+// any row longer than kWarpRow. One CUDA block takes one row block. A
+// block of short rows:
 //   1. Its nonzeros [p0, p1) are one contiguous range of cols and vals:
 //      the threads read it with coalesced 16-byte loads (4 nonzeros a
 //      thread), gather x at the 4 columns, all loads in flight at once,
@@ -33,10 +35,24 @@
 // The sums are therefore bitwise the CSR-order mul-then-add (chip_smoke.py
 // ::csr_sequential), the arithmetic K3 keeps. Before this design K2 summed
 // with fused multiply-adds: its last bits changed, deterministically.
-// A long row (a block of one row of more than kLongRow nonzeros) is
+// A warp block (at most kWarps rows, the first longer than kLongRow) gives
+// each row a warp: the lanes load kWarpChunk of its nonzeros at once,
+// coalesced, gather x and stage the rounded products in shared memory,
+// and the warp adds them to the row's sum in CSR order (warp_row_sum), so
+// these rows too are bitwise the sequential sum. Only the additions are
+// serial, ~4 cycles each, read four at a time from the stage. A whole
+// block for each such row would hold an SM to 8 rows at a time, in waves
+// of dependent loads: ten times the time of the bytes on a CSR whose rows
+// mostly hold 65 to 120 nonzeros. Past kWarpRow nonzeros a warp's serial
+// sum takes longer than the whole block's tree.
+// A long row (a block of one row of more than kWarpRow nonzeros) is
 // summed by the whole block: thread t adds nonzeros t, t + 256, ... in
 // order, then the block adds its threads' sums in a fixed tree. Such rows
 // agree with the plain version to f32 rounding, not bitwise.
+// The block's form follows from its first row: more than kWarpRow
+// nonzeros in a block of one row, the whole block; more than kLongRow in
+// a block of at most kWarps rows, a warp block; else short rows (a caller's
+// own blocks included, staged in chunks as above).
 
 // The kernel body is in csr_spmv_body.cuh, shared with K9's stage
 // ablation (csr_ablate.cu); K2 is its instantiation with every stage.

@@ -103,14 +103,15 @@ class StreamAblation:
     """K9 on a K2 operator (a CsrSpMV): `__call__(variant, x)` launches the
     variant on a CUDA tensor (counted in `launches[variant]`) and runs
     its plain version on a CPU tensor. Refuses rows longer than LONG_ROW,
-    which K2 sums with a whole block in every variant."""
+    which K2 sums with a warp or a whole block in every variant."""
 
     def __init__(self, csr: CsrSpMV):
         lens = csr.row_ptr.diff()
         if csr.nnz and int(lens.max()) > LONG_ROW:
             raise ValueError(f"stream_ablate: rows longer than {LONG_ROW} "
-                             "nonzeros are summed by a whole block in every "
-                             "variant; the ablation takes short rows only")
+                             "nonzeros are summed by a warp or a whole block "
+                             "in every variant; the ablation takes short "
+                             "rows only")
         spans = csr.row_ptr.long()[csr.row_blocks.long()].diff()
         if csr.nnz and int(spans.max()) > BLOCK_NNZ:
             raise ValueError("stream_ablate: a row block holds more than "

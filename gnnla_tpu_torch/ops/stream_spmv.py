@@ -24,7 +24,9 @@ package builds a transposed pack. The TPU's multi-RHS relayout ([t, M*8,
   * `csr_spmv_plain`       — the plain PyTorch version of both
                              (index_select + index_add_).
   * `csr_row_blocks`       — K2's row blocks: runs of rows whose
-                             nonzeros one CUDA block stages at once.
+                             nonzeros one CUDA block stages at once,
+                             warp blocks (a warp a row) and long rows;
+                             `block_forms` reads which is which.
   * `check_stream_pattern` — the refusals of the JAX packer
                              (`build_stream`), so the port refuses exactly
                              the patterns the JAX package refuses and both
@@ -36,6 +38,8 @@ package builds a transposed pack. The TPU's multi-RHS relayout ([t, M*8,
 
 from __future__ import annotations
 
+from bisect import bisect_left
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,9 +50,16 @@ from gnnla_tpu_torch.utils.program import count
 
 TILE = 1024  # the JAX packer's row tile / column superchunk width
 # K2's row blocks (csrc/csr_spmv.cu): nonzeros a block stages at once, rows
-# a block (one a thread), and the length above which a row is a block of
-# its own, summed by the whole block
+# a block (one a thread), the length above which a row starts a warp block
+# (a warp a row, at most BLOCK_WARPS rows), and the length above which a
+# row is a block of its own, summed by the whole block
 BLOCK_NNZ, BLOCK_ROWS, LONG_ROW = 2048, 256, 64
+WARP_ROW, BLOCK_WARPS = 256, 8
+
+# The nonzeros of every K2 launch, and of those the warp blocks summed:
+# each launch adds its CSR's `nnz` and `warp_nnz` (through `count`, so a
+# graph's replays add them too)
+K2_TALLY = SimpleNamespace(nnz=0, warp_nnz=0)
 
 
 def check_stream_pattern(indptr, indices, n_cols: int) -> int:
@@ -116,18 +127,46 @@ def csr_spmv_plain(rows: torch.Tensor, cols: torch.Tensor,
     return y.index_add_(0, rows, v * x.index_select(0, cols))
 
 
+def _warp_groups(lens: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(first, inside): bool [n] marks of the warp blocks' first rows and
+    of every row in a warp block, for row lengths `lens`. A row of
+    LONG_ROW + 1 to WARP_ROW nonzeros that no warp block holds yet starts
+    one, which takes it and the rows after it up to BLOCK_WARPS in all,
+    ending before a row of more than WARP_ROW."""
+    n = lens.shape[0]
+    mid = np.flatnonzero((lens > LONG_ROW) & (lens <= WARP_ROW)).tolist()
+    huge = np.flatnonzero(lens > WARP_ROW).tolist()
+    first = np.zeros(n, bool)
+    edge = np.zeros(n + 1, np.int64)
+    i = 0
+    while i < len(mid):
+        r0 = mid[i]
+        r1 = min(r0 + BLOCK_WARPS, n)
+        h = bisect_left(huge, r0)
+        if h < len(huge):
+            r1 = min(r1, huge[h])
+        first[r0] = True
+        edge[r0] += 1
+        edge[r1] -= 1
+        i = bisect_left(mid, r1, i + 1)
+    return first, np.cumsum(edge[:-1]) > 0
+
+
 def csr_row_blocks(row_ptr: torch.Tensor,
                    budget: int = BLOCK_NNZ) -> torch.Tensor:
     """K2's row blocks of a CSR: int32 [n_blocks + 1] row boundaries,
-    increasing from 0 to n_rows, built with torch ops on row_ptr's device.
+    increasing from 0 to n_rows, built on row_ptr's device.
 
-    A row of more than LONG_ROW nonzeros is a block of its own (the
-    kernel sums it with the whole block). The other rows form runs of
-    consecutive rows that start in the same window of budget - LONG_ROW
+    A row of more than WARP_ROW nonzeros is a block of its own (the
+    kernel sums it with the whole block). A row of LONG_ROW + 1 to
+    WARP_ROW nonzeros starts a warp block, up to BLOCK_WARPS rows (the
+    kernel sums each with a warp; `_warp_groups`). The other rows form runs
+    of consecutive rows that start in the same window of budget - LONG_ROW
     nonzeros and the same aligned run of BLOCK_ROWS rows, so a block holds
     fewer than `budget` nonzeros (its last row starts inside the window
     and holds at most LONG_ROW) and at most BLOCK_ROWS rows. Empty rows
-    join their neighbours."""
+    join their neighbours. A CSR with no row of more than LONG_ROW
+    nonzeros has short-row runs alone."""
     if budget <= LONG_ROW:
         raise ValueError(f"csr_row_blocks: budget {budget} must exceed "
                          f"the long-row length {LONG_ROW}")
@@ -138,11 +177,37 @@ def csr_row_blocks(row_ptr: torch.Tensor,
         long_ = rp.diff() > LONG_ROW
         window = rp[:-1] // (budget - LONG_ROW)
         cut = torch.ones(n, dtype=torch.bool, device=rp.device)
-        cut[1:] = (long_[1:] | long_[:-1] | (window[1:] != window[:-1])
-                   | (rows[1:] % BLOCK_ROWS == 0))
+        cut[1:] = (window[1:] != window[:-1]) | (rows[1:] % BLOCK_ROWS == 0)
+        if bool(long_.any()):
+            del window
+            lens = rp.diff()
+            # 0: a short row, 1: a warp block's row, 2: a row of its own
+            kind = (lens > WARP_ROW).to(torch.int8) * 2
+            first = torch.zeros(n, dtype=torch.bool, device=rp.device)
+            if bool((long_ & (lens <= WARP_ROW)).any()):
+                f, inside = _warp_groups(lens.cpu().numpy())
+                first = torch.from_numpy(f).to(rp.device)
+                kind[torch.from_numpy(inside).to(rp.device)] = 1
+            cut[1:] = ((kind[1:] != kind[:-1]) | (kind[1:] == 2) | first[1:]
+                       | ((kind[1:] == 0) & cut[1:]))
         starts = torch.nonzero(cut).reshape(-1)
         bounds = torch.cat([starts, rows.new_full((1,), n)])
     return bounds.to(torch.int32)
+
+
+def block_forms(row_ptr: torch.Tensor,
+                row_blocks: torch.Tensor) -> torch.Tensor:
+    """The form K2 gives each row block (int64 [n_blocks]), from its first
+    row as the kernel reads it: 2 the whole block (one row of more than
+    WARP_ROW nonzeros), 1 a warp a row (at most BLOCK_WARPS rows, the
+    first of more than LONG_ROW), 0 a thread a row."""
+    starts = row_blocks[:-1].long()
+    rows = row_blocks.diff()
+    len0 = row_ptr[starts + 1] - row_ptr[starts] if rows.numel() else rows
+    few = rows <= BLOCK_WARPS
+    whole = few & (rows == 1) & (len0 > WARP_ROW)
+    warp = few & ~whole & (len0 > LONG_ROW)
+    return whole.long() * 2 + warp.long()
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -262,8 +327,10 @@ class CsrSpMV:
     ones included; neither moves on the CPU path, which runs the plain
     version. `transpose` is the CsrSpMV of A^T that the gradient in x runs
     on (None: no gradient, the JAX package's with_transpose=False).
-    `row_blocks` are K2's (`csr_row_blocks`, built here once), and
-    `long_rows` counts the rows a whole CUDA block sums."""
+    `row_blocks` are K2's (`csr_row_blocks`, built here once),
+    `long_rows` counts the rows a whole CUDA block sums, and `warp_rows`
+    and `warp_nnz` the rows and nonzeros of its warp blocks, which each
+    K2 launch adds to `K2_TALLY`."""
 
     def __init__(self, A_csr, *, device: torch.device):
         """A_csr: scipy CSR with sorted indices (values cast to f32)."""
@@ -273,7 +340,11 @@ class CsrSpMV:
         self.row_ptr, self.cols, self.vals = device_csr(A_csr, device)
         self.row_blocks = csr_row_blocks(self.row_ptr)
         self.long_rows = int(np.count_nonzero(np.diff(A_csr.indptr)
-                                              > LONG_ROW))
+                                              > WARP_ROW))
+        warp = block_forms(self.row_ptr, self.row_blocks) == 1
+        self.warp_rows = int(self.row_blocks.diff()[warp].sum())
+        self.warp_nnz = int(self.row_ptr[self.row_blocks.long()].diff()[
+            warp].sum())
         self.transpose = None
         self.launches = 0
         self.launches_mm = 0
@@ -292,7 +363,12 @@ class CsrSpMV:
             return self.plain(x, vals)
         y = csr_spmv_cuda(self.row_ptr, self.cols, vals, x, self.shape[0],
                           self.row_blocks)
-        count(self, "launches" if x.ndim == 1 else "launches_mm")
+        if x.ndim == 1:
+            count(self, "launches")
+            count(K2_TALLY, "nnz", self.nnz)
+            count(K2_TALLY, "warp_nnz", self.warp_nnz)
+        else:
+            count(self, "launches_mm")
         return y
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -75,7 +75,8 @@ def run(A, dev: torch.device, *, n_iters: int = 100, n_chain: int = 5,
     if verbose:
         say(f"build {build_s:.1f}s rows={n} nnz={A.nnz} "
             f"row_blocks={mv.row_blocks.shape[0] - 1} "
-            f"long_rows={mv.long_rows} (device {dev})")
+            f"warp_rows={mv.warp_rows} long_rows={mv.long_rows} "
+            f"(device {dev})")
     rng = np.random.default_rng(0)
     x = rng.standard_normal(n).astype(np.float32)
     xt = torch.from_numpy(x).to(dev)

@@ -3,18 +3,24 @@ arithmetic of its block walk (`csrc/csr_spmv.cu`) on the CPU.
 
 The CSRs: P, P^T and the RCM-ordered A of the CLJP setup of the 40^2
 Laplacian (the fast cycle's and the stream leg's K2 operands), a CSR with
-empty rows, and a power-law pattern with rows of 1 to 10,000 nonzeros.
-The row blocks must hold every row exactly once and in order, keep the
-budget, and give each long row a block of its own.
+empty rows, a power-law pattern with rows of 1 to 10,000 nonzeros, and a
+CSR shaped as the 3-D SA hierarchy's second coarse level (rows of 33 to
+120 nonzeros, the long ones in clusters between short ones). The row
+blocks must hold every row exactly once and in order, keep the budget,
+put each row of LONG_ROW + 1 to WARP_ROW nonzeros in a warp block of at
+most BLOCK_WARPS rows, give each longer row a block of its own, and,
+where no row is longer than LONG_ROW, be the blocks of the short-row rule
+alone (`short_row_blocks`, the rule before warp blocks).
 
 `block_walk` below emulates the kernel: per block, the products
 v * x[col] rounded once, then each short row's sum in CSR order from 0;
-a long row summed by 256 strided partial sums and a fixed tree. On short
-rows it must equal a sequential float32 sum bit for bit (the kernel's
-arithmetic, as `chip_smoke.py::csr_sequential` holds it on the card);
-everything within rtol 1e-5, atol 1e-5 * max|y| of the plain version and
-of the JAX package's `StreamSpMV` (its numpy emulator): the sums run in
-other orders.
+a warp block's rows each summed by a warp, 32 products at a time added
+in order; a long row summed by 256 strided partial sums and a fixed tree.
+On every row but the long ones it must equal a sequential float32 sum
+bit for bit (the kernel's arithmetic, as `chip_smoke.py::csr_sequential`
+holds it on the card); everything within rtol 1e-5, atol 1e-5 * max|y|
+of the plain version and of the JAX package's `StreamSpMV` (its numpy
+emulator): the sums run in other orders.
 """
 
 import functools
@@ -25,17 +31,21 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from chip_smoke import sa_coarse_csr, short_row_blocks
 from gnnla_tpu.ops.pallas_stream import StreamSpMV
 from gnnla_tpu_torch.models.vcycle import setup_twogrid, setup_with_stream_p
 from gnnla_tpu_torch.ops.stream_op import stream_operator
 from gnnla_tpu_torch.ops.stream_spmv import (BLOCK_NNZ, BLOCK_ROWS,
-                                             LONG_ROW, CsrSpMV,
+                                             BLOCK_WARPS, LONG_ROW,
+                                             WARP_ROW, CsrSpMV, block_forms,
                                              csr_row_blocks, csr_spmv_plain,
                                              entry_rows)
 from gnnla_tpu_torch.problems import laplacian_2d
 
 RTOL = 1e-5
-CASES = ["P", "Pt", "A_rcm", "A_rcm_T", "empty_rows", "power_law"]
+CASES = ["P", "Pt", "A_rcm", "A_rcm_T", "empty_rows", "power_law",
+         "sa_coarse"]
+SHORT_ONLY = ["P", "Pt", "A_rcm", "A_rcm_T", "empty_rows"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,7 +94,39 @@ def case_csr(case):
         return CsrSpMV(power_law(), device="cpu")
     if case == "empty_rows":
         return CsrSpMV(with_empty_rows(), device="cpu")
+    if case == "sa_coarse":
+        return CsrSpMV(sa_coarse_csr(3000, 2), device="cpu")
     return fast_csrs()[case]
+
+
+def reference_blocks(row_ptr, budget=BLOCK_NNZ):
+    """The row-block rule walked row by row in plain Python: a row of more
+    than WARP_ROW nonzeros alone; a row of LONG_ROW + 1 to WARP_ROW starts
+    a warp block of it and the next rows, up to BLOCK_WARPS, ending before
+    a row of more than WARP_ROW; other rows in runs as `short_row_blocks`
+    has them."""
+    rp = row_ptr.tolist()
+    n = len(rp) - 1
+    lens = [rp[r + 1] - rp[r] for r in range(n)]
+    w = budget - LONG_ROW
+    bounds, r, run = [], 0, None  # run: (window, aligned run) of a run
+    while r < n:
+        if lens[r] > WARP_ROW:
+            bounds.append(r)
+            r, run = r + 1, None
+        elif lens[r] > LONG_ROW:
+            bounds.append(r)
+            end = r + 1
+            while end < min(r + BLOCK_WARPS, n) and lens[end] <= WARP_ROW:
+                end += 1
+            r, run = end, None
+        else:
+            key = (rp[r] // w, r // BLOCK_ROWS)
+            if key != run:
+                bounds.append(r)
+                run = key
+            r += 1
+    return torch.tensor(bounds + [n], dtype=torch.int32)
 
 
 def block_walk(csr, x):
@@ -93,9 +135,19 @@ def block_walk(csr, x):
     prod = csr.vals * x[csr.cols.long()]  # each product rounded once
     y = torch.zeros(csr.shape[0])
     bounds = csr.row_blocks.tolist()
-    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+    forms = block_forms(csr.row_ptr, csr.row_blocks).tolist()
+    for r0, r1, form in zip(bounds[:-1], bounds[1:], forms):
         p0, p1 = int(rp[r0]), int(rp[r1])
-        if r1 - r0 == 1 and p1 - p0 > LONG_ROW:
+        if form == 1:  # warp w: row r0 + w, 32 lanes' products a step
+            for r in range(r0, r1):
+                acc = torch.zeros(())
+                for q in range(int(rp[r]), int(rp[r + 1]), 32):
+                    lanes = prod[q:min(q + 32, int(rp[r + 1]))]
+                    for v in lanes:  # broadcast by shuffles, in order
+                        acc = acc + v
+                y[r] = acc
+            continue
+        if form == 2:
             part = torch.zeros(256)
             for t in range(256):  # thread t: nonzeros t, t + 256, ...
                 acc = torch.zeros(())
@@ -151,27 +203,68 @@ def test_row_blocks_cover_every_row_once_within_the_budget(case):
     lens = rp.diff()
     nnz = rp[b[1:]] - rp[b[:-1]]
     rows = b.diff()
-    long_ = lens > LONG_ROW
+    form = block_forms(csr.row_ptr, rb)
+    block_of = torch.repeat_interleave(torch.arange(rows.numel()), rows)
+    long_, mid = lens > WARP_ROW, (lens > LONG_ROW) & (lens <= WARP_ROW)
+    # a long row is a block of its own, the whole block's; no other block
+    # holds one
     alone = (rows == 1) & long_[b[:-1]]
-    # a long row is a block of its own; no other block holds one
+    assert torch.equal(alone, form == 2)
     assert int(alone.sum()) == int(long_.sum()) == csr.long_rows
-    assert bool((nnz[~alone] < BLOCK_NNZ).all())
+    # every row of LONG_ROW + 1 to WARP_ROW nonzeros in a warp block of at
+    # most BLOCK_WARPS rows, and the short-row runs within the budget
+    assert bool((form[block_of[mid]] == 1).all())
+    assert bool((rows[form == 1] <= BLOCK_WARPS).all())
+    assert bool((nnz[form == 0] < BLOCK_NNZ).all())
+    assert bool((lens[form[block_of] == 0] <= LONG_ROW).all())
     assert bool((rows <= BLOCK_ROWS).all())
-    # a pure function of row_ptr
+    # the rule walked row by row; a pure function of row_ptr
+    assert torch.equal(rb, reference_blocks(csr.row_ptr))
     assert torch.equal(csr_row_blocks(csr.row_ptr), rb)
+    # the warp blocks' rows and nonzeros, counted from row_ptr
+    in_warp = form[block_of] == 1
+    assert csr.warp_rows == int(in_warp.sum())
+    assert csr.warp_nnz == int(lens[in_warp].sum())
+    assert (csr.warp_rows > 0) == bool(mid.any())
+
+
+@pytest.mark.parametrize("case", SHORT_ONLY)
+def test_row_blocks_without_long_rows_are_the_short_row_rule(case):
+    """No row of more than LONG_ROW nonzeros: the blocks of the rule
+    before warp blocks, short-row runs alone."""
+    csr = case_csr(case)
+    assert int(csr.row_ptr.long().diff().max()) <= LONG_ROW
+    assert torch.equal(csr.row_blocks, short_row_blocks(csr.row_ptr))
+    assert bool((block_forms(csr.row_ptr, csr.row_blocks) == 0).all())
+    assert csr.warp_rows == csr.warp_nnz == csr.long_rows == 0
+
+
+def test_sa_coarse_packs_its_long_rows_into_warp_blocks():
+    """The SA-coarse-level shape: most rows in warp blocks, several rows a
+    block, where a block for each long row would take more than twice as
+    many."""
+    csr = case_csr("sa_coarse")
+    lens = csr.row_ptr.long().diff()
+    assert int(lens.min()) >= 33 and int(lens.max()) <= 120
+    n_blocks = csr.row_blocks.shape[0] - 1
+    before = short_row_blocks(csr.row_ptr).shape[0] - 1
+    assert csr.warp_rows > csr.shape[0] // 2 and csr.long_rows == 0
+    assert 2 * n_blocks < before
 
 
 def test_power_law_has_long_rows_and_packs_the_short_ones():
     csr = case_csr("power_law")
     lens = csr.row_ptr.long().diff()
     assert int(lens.max()) == 10_000 and int(lens.min()) == 1
-    assert csr.long_rows > 10
+    assert csr.long_rows > 10 and csr.warp_rows > 10
     assert csr.row_blocks.shape[0] - 1 < csr.shape[0] // 4
 
 
 def test_row_blocks_of_tiny_and_empty_csrs():
     for indptr, want in (([0], [0]), ([0, 0], [0, 1]), ([0, 0, 0], [0, 2]),
-                         ([0, 65, 65], [0, 1, 2]), ([0, 64, 64], [0, 2])):
+                         ([0, 65, 65], [0, 2]), ([0, 64, 64], [0, 2]),
+                         ([0, 1025, 1025], [0, 1, 2]),
+                         ([0, 1, 66, 67, 1100, 1200], [0, 1, 3, 4, 5])):
         got = csr_row_blocks(torch.tensor(indptr, dtype=torch.int32))
         assert got.tolist() == want, (indptr, got)
     with pytest.raises(ValueError, match="budget"):
@@ -191,13 +284,14 @@ def test_budget_bounds_the_blocks():
 
 @pytest.mark.parametrize("case", CASES)
 def test_block_walk_is_the_sequential_sum(case):
-    """Short rows bitwise the CSR-order float32 sum; long rows (the
-    power-law pattern's) within rtol."""
+    """Rows of at most WARP_ROW nonzeros (a thread's or a warp's) bitwise
+    the CSR-order float32 sum; longer rows (the power-law pattern's)
+    within rtol."""
     csr = case_csr(case)
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         csr.shape[1]).astype(np.float32))
     got, want = block_walk(csr, x), sequential(csr, x)
-    short = csr.row_ptr.long().diff() <= LONG_ROW
+    short = csr.row_ptr.long().diff() <= WARP_ROW
     assert torch.equal(got[short], want[short])
     assert_close(got, want)
     plain = csr_spmv_plain(entry_rows(csr.row_ptr, csr.nnz), csr.cols,
@@ -207,7 +301,8 @@ def test_block_walk_is_the_sequential_sum(case):
     assert csr.launches == 0
 
 
-@pytest.mark.parametrize("case", ["A_rcm", "A_rcm_T", "power_law"])
+@pytest.mark.parametrize("case", ["A_rcm", "A_rcm_T", "power_law",
+                                  "sa_coarse"])
 def test_block_walk_matches_jax_stream_spmv(case):
     """The square CSRs on the JAX package's stream SpMV (emulator)."""
     csr = case_csr(case)

@@ -578,20 +578,22 @@ def test_mg_pcg_on_k1_and_k2(cuda, max_offsets):
     `max_offsets` diagonals (7, 265, 147 and 19 at levels 0-3) and K2 on
     the rest and on every P: no COO operator left, the CPU path's x
     within 2e-5 (as on K1 alone: each level's sums in another order in
-    f32, carried through 10 iterations; K2 sums a row of more than 64
-    nonzeros by a block reduction), and exact launches per operator, one
+    f32, carried through 10 iterations), exact launches per operator, one
     cycle more than iterations: 3 a cycle on a K2 level (8 at the
-    coarsest), 1 + 1 on each P, K1's as in the test above."""
+    coarsest), 1 + 1 on each P, K1's as in the test above, and their
+    nonzeros in K2's tally."""
     from gnnla_tpu_torch.models import (mg_pcg, setup_sa_multigrid,
                                         setup_with_dia_multigrid)
     from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
     from gnnla_tpu_torch.ops.sparse import SparseOperator
     from gnnla_tpu_torch.ops.stream_op import (RectStreamOperator,
                                                StreamOperator)
+    from gnnla_tpu_torch.ops.stream_spmv import K2_TALLY
     from gnnla_tpu_torch.problems import laplacian_nd
 
     b = np.random.default_rng(6).standard_normal(4096).astype(np.float32)
     xs = {}
+    tally0 = (K2_TALLY.nnz, K2_TALLY.warp_nnz)
     for dev in ("cpu", cuda):
         A = laplacian_nd((16, 16, 16), device=dev)[0]
         mg = setup_with_dia_multigrid(setup_sa_multigrid(A, seed=0),
@@ -615,6 +617,14 @@ def test_mg_pcg_on_k1_and_k2(cuda, max_offsets):
         assert got == cycles * per_cycle, (lvl, got)
     assert [(p.fwd.launches, p.bwd.launches) for p in mg.Ps] == [
         (cycles, cycles)] * last
+    # each K2 launch added its CSR's nonzeros and its warp blocks' to the
+    # tally (P1^T has rows of up to 89 nonzeros)
+    k2 = [(a.fwd, a.fwd.launches) for a in mg.As if isinstance(
+        a, StreamOperator)] + [(c, c.launches) for p in mg.Ps
+                               for c in (p.fwd, p.bwd)]
+    assert (K2_TALLY.nnz - tally0[0], K2_TALLY.warp_nnz - tally0[1]) == (
+        sum(n * c.nnz for c, n in k2), sum(n * c.warp_nnz for c, n in k2))
+    assert mg.Ps[1].bwd.warp_nnz > 0
     xc = xs["cpu"]
     assert float((xs[str(cuda)] - xc).abs().max() / xc.abs().max()) < 2e-5
     assert float(hist[-1]) < 1e-5 * float(np.linalg.norm(b))
@@ -917,17 +927,22 @@ def _power_law_csr(n, seed):
 
 def test_csr_kernel_is_the_csr_order_sum(cuda):
     """K2 on P, P^T (the 64^2 fast setup), A_rcm and A_rcm^T (a shuffled
-    80^2 Laplacian): bitwise the CSR-order mul-then-add; on a power-law
-    pattern with rows of up to 3,000 nonzeros (long rows summed by a
-    whole block) the plain version within rtol; one launch each."""
-    from chip_smoke import csr_sequential
+    80^2 Laplacian) and on a CSR shaped as the 3-D SA hierarchy's second
+    coarse level (rows of 33 to 120 nonzeros, most in warp blocks):
+    bitwise the CSR-order mul-then-add; on a power-law pattern with rows
+    of up to 3,000 nonzeros (rows of more than 256 summed by a whole
+    block) the plain version within rtol, and its rows of at most 256
+    bitwise; one launch each."""
+    from chip_smoke import csr_sequential, sa_coarse_csr
     from gnnla_tpu_torch.ops.stream_op import stream_operator
-    from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV
+    from gnnla_tpu_torch.ops.stream_spmv import WARP_ROW, CsrSpMV
 
     _, fast = _fast(64, cuda)
     A, _, _ = _rcm_csr(80, cuda)
     S = stream_operator(A, reorder=True)
-    for csr in (fast.P.fwd, fast.P.bwd, S.fwd, S.bwd):
+    sa = CsrSpMV(sa_coarse_csr(20_000, 5), device=cuda)
+    assert sa.warp_rows > 10_000 and sa.long_rows == 0
+    for csr in (fast.P.fwd, fast.P.bwd, S.fwd, S.bwd, sa):
         x = torch.from_numpy(np.random.default_rng(2).standard_normal(
             csr.shape[1]).astype(np.float32)).to(cuda)
         csr.launches = 0
@@ -936,10 +951,13 @@ def test_csr_kernel_is_the_csr_order_sum(cuda):
         assert torch.equal(y, csr_sequential(csr, x[:, None])[:, 0])
         _close(y, csr.plain(x))
     pl = CsrSpMV(_power_law_csr(5000, 3), device=cuda)
-    assert pl.long_rows > 0
+    assert pl.long_rows > 0 and pl.warp_rows > 0
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
         5000).astype(np.float32)).to(cuda)
-    _close(pl(x), pl.plain(x))
+    y = pl(x)
+    _close(y, pl.plain(x))
+    upto = pl.row_ptr.diff() <= WARP_ROW
+    assert torch.equal(y[upto], csr_sequential(pl, x[:, None])[upto, 0])
     assert pl.launches == 1
 
 

@@ -428,7 +428,8 @@ def test_guards_register_only_inside_a_capture_once_each():
 
 def test_k1_k2_k4_count_through_the_recorder(monkeypatch):
     """The K1, K2/K3 and K4 wrappers count through `count` (so a capture
-    records them): their card paths, with the launches stubbed out."""
+    records them), K2 its nonzeros into `K2_TALLY` too: their card paths,
+    with the launches stubbed out."""
     from gnnla_tpu_torch.ops import dia_spmv, stencil_kernel, stream_spmv
 
     seen = []
@@ -458,6 +459,8 @@ def test_k1_k2_k4_count_through_the_recorder(monkeypatch):
     assert seen == [("DiaKernelOperator", "launches", 1),
                     ("DiaKernelOperator", "launches", 1),
                     ("CsrSpMV", "launches", 1),
+                    ("SimpleNamespace", "nnz", fast.P.fwd.nnz),
+                    ("SimpleNamespace", "warp_nnz", fast.P.fwd.warp_nnz),
                     ("CsrSpMV", "launches_mm", 1),
                     ("StencilCall", "launches", stencil_kernel.
                      stencil_launches("affine", 3, call.form.form))]
