@@ -12,9 +12,14 @@ do; each direction's gradient in the vector runs K2 on the other CSR.
 (`stream_spmv.rcm_csr`), which bounds the column windows the JAX packer
 tests, and gathers caller-order vectors into kernel order and back
 (`perm`/`iperm`), as the JAX package does; `reorder=False` keeps the
-caller's order. `transpose=False` keeps only the CSR of A: the multilevel
-cycle applies its levels forward only, and a stored A^T of the largest
-such level would cost as much device memory as A. The JAX package's
+caller's order. Its host set-up is three stages (`stream.csr`, the host
+CSR; `stream.rcm`, the ordering and its permutations; `stream.layout`,
+K2's CSRs and the gathers' indices on the device), and each gather of an
+apply is counted (`StreamOperator.gathers`) and, while a profiler
+records, a device span `stream.perm`. `transpose=False` keeps only the
+CSR of A: the multilevel cycle applies its levels forward only, and a
+stored A^T of the largest such level would cost as much device memory as
+A. The JAX package's
 square embedding of a rectangular P was a device of the TPU pack; K2
 takes the rectangular CSR directly. The embedding still decides which
 patterns are refused, so both packages take the same layout.
@@ -26,10 +31,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from gnnla_tpu_torch.ops.sparse import SparseOperator
 from gnnla_tpu_torch.ops.stream_spmv import (CsrSpMV, check_stream_pattern,
                                              link_transposes, rcm_csr)
+from gnnla_tpu_torch.utils.program import count, span_begin, span_end, stage
 
 
 def _vector(v: torch.Tensor, n: int, what: str) -> None:
@@ -71,7 +78,8 @@ class StreamOperator:
                    a forward-only operator, whose rmatvec and gradient in x
                    raise
     perm / iperm : caller order <-> kernel (RCM) order gathers, or None
-    diag         : [n] diagonal in caller order"""
+    diag         : [n] diagonal in caller order
+    gathers      : the caller-order gathers run (two an apply with perm)"""
 
     def __init__(self, fwd: CsrSpMV, bwd: Optional[CsrSpMV],
                  diag: torch.Tensor,
@@ -84,6 +92,7 @@ class StreamOperator:
         self.iperm = iperm
         self.shape: Tuple[int, int] = fwd.shape
         self.nnz = fwd.nnz
+        self.gathers = 0
 
     @property
     def n_rows(self) -> int:
@@ -93,10 +102,22 @@ class StreamOperator:
     def n_cols(self) -> int:
         return self.shape[1]
 
+    def _gather(self, v: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+        """v[index], one caller-order gather: counted, and a device span
+        `stream.perm` while a profiler records."""
+        state = (span_begin("stream.perm") if _profiler._is_profiler_enabled
+                 else None)
+        try:
+            out = v[index]
+        finally:
+            span_end(state)
+        count(self, "gathers")
+        return out
+
     def _apply(self, kernel: CsrSpMV, v: torch.Tensor) -> torch.Tensor:
-        vk = v if self.perm is None else v[self.perm]
-        yk = kernel(vk)
-        return yk if self.iperm is None else yk[self.iperm]
+        if self.perm is None:
+            return kernel(v)
+        return self._gather(kernel(self._gather(v, self.perm)), self.iperm)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         _vector(x, self.n_cols, "matvec")
@@ -178,18 +199,23 @@ def stream_operator(op: SparseOperator, *, reorder: bool = True,
     in x). ValueError where the JAX packer refuses the packed pattern."""
     if op.shape[0] != op.shape[1]:
         raise ValueError("stream SpMV requires a square operator")
-    A = _host_csr(op, op.shape)
-    perm = iperm = None
+    with stage("stream.csr"):
+        A = _host_csr(op, op.shape)
+    p = None
     if reorder:
-        A, p = rcm_csr(A)
-        perm = torch.from_numpy(p.astype(np.int64)).to(op.device)
-        iperm = torch.from_numpy(np.argsort(p).astype(np.int64)).to(
+        with stage("stream.rcm"):
+            A, p = rcm_csr(A)
+            ip = np.argsort(p)
+    with stage("stream.layout"):
+        perm = iperm = None
+        if p is not None:
+            perm = torch.from_numpy(p.astype(np.int64)).to(op.device)
+            iperm = torch.from_numpy(ip.astype(np.int64)).to(op.device)
+        if transpose:
+            fwd, bwd = csr_pair(A, op.device, width=op.n_rows)
+        else:
+            check_stream_pattern(A.indptr, A.indices, op.n_rows)
+            fwd, bwd = CsrSpMV(A, device=op.device), None
+        diag = torch.from_numpy(op.host_diagonal().astype(np.float32)).to(
             op.device)
-    if transpose:
-        fwd, bwd = csr_pair(A, op.device, width=op.n_rows)
-    else:
-        check_stream_pattern(A.indptr, A.indices, op.n_rows)
-        fwd, bwd = CsrSpMV(A, device=op.device), None
-    diag = torch.from_numpy(op.host_diagonal().astype(np.float32)).to(
-        op.device)
     return StreamOperator(fwd, bwd, diag, perm, iperm)

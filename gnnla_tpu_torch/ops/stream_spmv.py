@@ -44,9 +44,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from gnnla_tpu_torch import _build
-from gnnla_tpu_torch.utils.program import count
+from gnnla_tpu_torch.utils.program import count, span_begin, span_end
 
 TILE = 1024  # the JAX packer's row tile / column superchunk width
 # K2's row blocks (csrc/csr_spmv.cu): nonzeros a block stages at once, rows
@@ -358,17 +359,24 @@ class CsrSpMV:
 
     def launch(self, x: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         """y = A(vals) x with no autograd: the kernel on a CUDA tensor
-        (counted), the plain version on a CPU tensor."""
+        (counted), the plain version on a CPU tensor. K2's enqueue is the
+        host-only span `k2.launch` while a profiler records."""
         if x.device.type == "cpu":
             return self.plain(x, vals)
-        y = csr_spmv_cuda(self.row_ptr, self.cols, vals, x, self.shape[0],
-                          self.row_blocks)
-        if x.ndim == 1:
-            count(self, "launches")
-            count(K2_TALLY, "nnz", self.nnz)
-            count(K2_TALLY, "warp_nnz", self.warp_nnz)
-        else:
-            count(self, "launches_mm")
+        state = (span_begin("k2.launch", host_only=True)
+                 if _profiler._is_profiler_enabled and x.ndim == 1
+                 else None)
+        try:
+            y = csr_spmv_cuda(self.row_ptr, self.cols, vals, x,
+                              self.shape[0], self.row_blocks)
+            if x.ndim == 1:
+                count(self, "launches")
+                count(K2_TALLY, "nnz", self.nnz)
+                count(K2_TALLY, "warp_nnz", self.warp_nnz)
+            else:
+                count(self, "launches_mm")
+        finally:
+            span_end(state)
         return y
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -316,6 +316,51 @@ def test_stream_leg_on_the_card(cuda):
     assert (S.fwd.launches, S.bwd.launches) == (1 + 21, 1)
 
 
+def test_caller_order_apply_is_k2_on_the_rcm_csr(cuda):
+    """`stream_operator(reorder=True, transpose=False)` on the k-NN-32
+    Laplacian of 2^16 points in their own order: its apply is bitwise K2
+    on the RCM-ordered CSR of x gathered into that order, gathered back
+    (the gathers only move values); one K2 launch and two counted gathers
+    an apply. Under a profiler each apply is one `k2.launch` host span and
+    two `stream.perm` spans."""
+    import scipy.sparse as sp
+
+    from gnnla_tpu_torch.ops.sparse import SparseOperator
+    from gnnla_tpu_torch.ops.stream_op import stream_operator
+    from gnnla_tpu_torch.ops.stream_spmv import CsrSpMV, rcm_csr
+    from gnnla_tpu_torch.scratch.bench_stream import knn_laplacian
+    from gnnla_tpu_torch.utils import program as prog
+
+    lap = knn_laplacian(2 ** 16)
+    coo = sp.coo_matrix(lap)
+    n = lap.shape[0]
+    A = SparseOperator.from_coo(coo.row, coo.col, coo.data, (n, n),
+                                coalesce=False, device=cuda)
+    op = stream_operator(A, reorder=True, transpose=False)
+    B, p = rcm_csr(A.to_scipy())
+    assert np.array_equal(op.perm.cpu().numpy(), p)
+    k2 = CsrSpMV(B, device=cuda)
+    iperm = torch.from_numpy(np.argsort(p)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        n).astype(np.float32)).to(cuda)
+    want = k2(x[op.perm])[iperm]
+    got = op.matvec(x)
+    assert torch.equal(got, want)
+    assert (op.fwd.launches, op.gathers) == (1, 2)
+    _close(got, A.matvec(x))
+
+    prog.reset()
+    with _profiling():
+        for _ in range(3):
+            op.matvec(x)
+    rep = prog.report()
+    prog.reset()
+    assert (op.fwd.launches, op.gathers) == (4, 8)
+    assert rep["k2.launch"]["calls"] == 3
+    assert rep["k2.launch"]["device_calls"] == 0
+    assert rep["stream.perm"]["calls"] == 6
+
+
 # ------------------------------------------------ K3, K2's and K1's grads
 def _rcm_csr(n, device):
     """(shuffled n^2 Laplacian as a SparseOperator on `device`, its CSR in
