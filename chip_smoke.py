@@ -191,7 +191,10 @@ The multilevel hierarchies and the Krylov solvers:
                     0 and 1 each form flushed, beside K1 with the chain's
                     elementwise kernels (five for a sweep, one for the
                     residual), K1 alone and the fused bytes' bound (a
-                    `dia_tiles_<form>[SA2d.A<l>]` row each).
+                    `dia_tiles_<form>[SA2d.A<l>]` row each). The K1
+                    coarsest's degree-8 Chebyshev in K1's one-launch form
+                    (one launch) bitwise the eager chain (8 K1 launches),
+                    with ms and device-busy ms a call of each.
 The GN-block engine and the paper's GN forms, held against the kernels:
  23. gn_setup     — `setup_twogrid(use_device_gnn=True)` on phase 3's
                     operator (SOC and direct interpolation as GN blocks on
@@ -474,8 +477,10 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -2103,6 +2108,41 @@ def jax_bench_reference() -> dict:
         r'"(convfac_\w+|pcg_iters_to_1e8)": ([0-9.]+)', tail)}
 
 
+def coarsest_chebyshev(op, sa, gen) -> Optional[dict]:
+    """The SA hierarchy's coarsest solve (degree-8 Chebyshev on its (c,
+    d)) where that level is on K1: K1's one-launch form against the eager
+    chain on the same operator (8 K1 launches and the vector updates
+    between them, through an object with the operator's matvec alone):
+    bitwise, the launches of each, ms a call by CUDA events over 200
+    calls back to back and device-busy ms a call from the profiler.
+    None where the coarsest is not on K1."""
+    if op is None:
+        return None
+    bc = torch.from_numpy(gen.standard_normal(op.n).astype(
+        np.float32)).to(op.device)
+    xc = torch.zeros_like(bc)
+    cheb = dict(c=sa.coarse_c, d=sa.coarse_d, deg=8)
+    chain_op = types.SimpleNamespace(matvec=op.matvec)
+    require(op.takes_chebyshev(bc, xc, 8), "the coarsest takes no form")
+    out = {}
+    for name, target in (("form", op), ("chain", chain_op)):
+        before = op.launches
+        y = chebyshev(target, bc, xc, **cheb)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            launches=op.launches - before,
+            ms=cuda_ms(lambda: chebyshev(target, bc, xc, **cheb), 200),
+            device_ms=profile_cycles(lambda c: [
+                chebyshev(target, bc, xc, **cheb) for _ in range(c)])[
+                    "device_busy_ms_per_cycle"])
+        out[name + "_x"] = y
+    bitwise = bool(torch.equal(out.pop("form_x"), out.pop("chain_x")))
+    require(bitwise and out["form"]["launches"] == 1
+            and out["chain"]["launches"] == 8, out)
+    return dict(rows=op.n, segments=op.tiles.n_segs,
+                bitwise_eager_chain=bitwise, **out)
+
+
 def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
     """Phases 20-22: the SA hierarchy and mg_pcg at 1024^2, amg_pcg on the
     fast setup, and the convergence-factor table; returns the rows of K1
@@ -2131,10 +2171,10 @@ def multigrid_phases(A, plain, fast, b, flush, smi) -> list:
 
     def want_launches(lvl):
         """K1 launches of one mg_pcg at a K1 level: per cycle n_pre +
-        residual + n_post (1 + 1 + 1), the coarsest Chebyshev's degree 8,
-        and CG's own matvec on A_0."""
+        residual + n_post (1 + 1 + 1), at the coarsest one (its degree-8
+        Chebyshev in K1's one-launch form), and CG's own matvec on A_0."""
         if lvl == L - 1:
-            return 8 * cycles
+            return cycles
         return (3 + (lvl == 0)) * cycles
 
     for a in on_k1.values():
@@ -2345,7 +2385,8 @@ def sa_k2_phase(lib, flush, smi) -> list:
     cuSPARSE's (a `csr_spmv[SA<grid>.<key>]` row each), with the share of
     rows and of nonzeros in rows a whole CUDA block sums; K1's fused forms
     bitwise on every K1 smoothing level (`sa_fused_bitwise`) and timed on
-    2-D levels 0 and 1 (`sa_fused_rows`)."""
+    2-D levels 0 and 1 (`sa_fused_rows`); the coarsest's Chebyshev in
+    K1's one-launch form against the eager chain (`coarsest_chebyshev`)."""
     dev = torch.device("cuda")
     rows_out, summary = [], {}
     for tag, grid, keys in SA_K2_SHAPES:
@@ -2419,6 +2460,7 @@ def sa_k2_phase(lib, flush, smi) -> list:
             rows_out += sa_fused_rows(mg, tag, lib, flush)
         summary[tag] = dict(
             grid=list(grid), swap_s=t_swap, fused_launches=fused,
+            coarsest_chebyshev=coarsest_chebyshev(on_k1.get(last), sa, gen),
             fused_bitwise=checked, levels=[
                 dict(rows=a.n_rows, nnz=a.nnz, kind=type(a).__name__)
                 for a in mg.As], launches_per_cycle=got)

@@ -113,6 +113,11 @@ def load(force: bool = False) -> ctypes.CDLL:
         fn.restype = ci
         fn.argtypes = [vp, vp, vp, ci, ci, vp, ci, vp, vp, vp, vp,
                        ctypes.c_float, vp, vp]
+    lib.dia_chebyshev_f32.restype = ci
+    lib.dia_chebyshev_f32.argtypes = [vp, vp, vp, ci, vp, ci, ci, vp, vp,
+                                      ctypes.POINTER(ctypes.c_float),
+                                      ctypes.POINTER(ctypes.c_float), ci, vp,
+                                      vp]
     lib.csr_spmv_f32.restype = ci
     lib.csr_spmv_f32.argtypes = [vp, vp, vp, ci, vp, ci, ci, vp, vp, vp]
     lib.csr_spmm_f32.restype = ci

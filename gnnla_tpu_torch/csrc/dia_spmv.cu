@@ -122,7 +122,9 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
 
 // Row i's sum over the segments [s0, s1) of its tile, in segment order.
 // The whole warp calls it with the same s0 and s1 (for the shuffles).
-template <typename D>
+// SHARED_X: x lies in shared memory (the Chebyshev form), else in device
+// memory, read through the read-only cache.
+template <typename D, bool SHARED_X = false>
 __device__ __forceinline__ float walk(const int* __restrict__ seg_off,
                                       const D* __restrict__ seg_vals,
                                       int s0, int s1, int i, int n,
@@ -144,7 +146,10 @@ __device__ __forceinline__ float walk(const int* __restrict__ seg_off,
         xv[u] = 0.0f;
         if (on[u]) {
           v[u] = widen(seg_vals[(int64_t)(base + j + u) * kTile + lane]);
-          xv[u] = __ldg(x + c);
+          if constexpr (SHARED_X)
+            xv[u] = x[c];
+          else
+            xv[u] = __ldg(x + c);
         }
       }
 #pragma unroll
@@ -168,6 +173,18 @@ struct Layout {
   int n, K;
 };
 
+// Whether the tile's segments [start, end) hold offset `off` (a binary
+// search: the offsets increase within a tile).
+__device__ __forceinline__ bool holds(const int* __restrict__ seg_off,
+                                      int start, int end, int off) {
+  int lo = start, hi = end;
+  while (lo < hi) {  // the first segment of the tile at >= off
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(seg_off + mid) < off) lo = mid + 1; else hi = mid;
+  }
+  return lo < end && __ldg(seg_off + lo) == off;
+}
+
 // The last block's repair: NaN into every row r = j - off_k that reaches a
 // non-finite x[j] through a segment the tile skipped.
 template <typename D>
@@ -182,13 +199,9 @@ __device__ void repair_nonfinite(const Layout<D>& L,
       const int64_t r = (int64_t)j - off;
       if (r < 0 || r >= L.n) continue;
       const int t = (int)(r / kTile);
-      const int end = __ldg(L.seg_ptr + t + 1);
-      int lo = __ldg(L.seg_ptr + t), hi = end;
-      while (lo < hi) {  // the first segment of the tile at >= off
-        const int mid = (lo + hi) >> 1;
-        if (__ldg(L.seg_off + mid) < off) lo = mid + 1; else hi = mid;
-      }
-      if (lo == end || __ldg(L.seg_off + lo) != off) y[r] = nan;
+      if (!holds(L.seg_off, __ldg(L.seg_ptr + t), __ldg(L.seg_ptr + t + 1),
+                 off))
+        y[r] = nan;
     }
   }
 }
@@ -419,6 +432,108 @@ int launch(const void* seg_ptr, const void* seg_off, const void* seg_vals,
   return (int)cudaGetLastError();
 }
 
+// The Chebyshev form: the whole degree-deg recurrence of
+// models/chebyshev.py::chebyshev in one launch, on an operator small enough
+// for one block (a multigrid hierarchy's coarsest level):
+//   r = b - A x ; p = r ; x += alpha_1 p
+//   k = 2 .. deg: z = A p ; r -= alpha_{k-1} z ; p = r + beta_k p ;
+//                 x += alpha_k p
+// In the eager chain each of those steps is a PyTorch kernel beside the
+// deg K1 launches: 4 + 7 (deg - 1) launches (53 at degree 8) for a few
+// hundred flops, so on the coarsest level the time is all launch latency
+// and the gaps between them. Here the deg applies depend on each other
+// inside one block, with barriers between them, and what bounds the
+// launch is the latency of each apply. So each apply is the split
+// form's, tile by tile in the same block: 8 warps a tile, each walking
+// one contiguous run of the tile's segments in segment order, the runs'
+// sums added in run order by the tile's warp 0. That is the sum K1 takes
+// at these sizes, so every apply gives K1's bits; and the layout, read
+// through L1 from the first apply on, is walked 8 runs at once. The
+// applied vector (x, then each p) sits in shared memory, since a row reads
+// its neighbours'; b, r, p and x of a row stay in the registers of the
+// tile's warp 0. The host computes alpha and beta in double, in the
+// chain's order, and each travels in the launch's arguments as the f32
+// that PyTorch's f32 product rounds it to, so a captured graph holds
+// them. Each step rounds as the chain does (the scalar product, then the
+// sum or difference; the _rn intrinsics keep them apart), so the form
+// gives the chain's x bit for bit. A layout that needs the non-finite
+// repair (see the header) applies its rule row by row after each apply,
+// when one entry of the applied vector is not finite.
+constexpr int kChebTiles = 4;  // x 8 warps x 32 lanes: one block's 1,024
+constexpr int kChebRows = kChebTiles * kTile;
+constexpr int kChebMaxDeg = 32;  // the schedule's room
+
+struct ChebSchedule {
+  float alpha[kChebMaxDeg];  // alpha_1 .. alpha_deg
+  float beta[kChebMaxDeg];   // beta_2 .. beta_deg, at 0 .. deg - 2
+  int deg;
+};
+
+// One block of 8 warps for each of the layout's ceil(n / 32) <= 4 tiles.
+// REPAIR: the layout skips a segment that a row reaches.
+template <bool REPAIR>
+__global__ void __launch_bounds__(kChebTiles * kSplitWarps * kTile)
+dia_tiles_chebyshev_kernel(Layout<float> L, const float* __restrict__ b,
+                           const float* __restrict__ x0, ChebSchedule s,
+                           float* __restrict__ out) {
+  __shared__ float v[kChebRows];  // the applied vector
+  __shared__ float part[kChebTiles][kSplitWarps][kTile];
+  const int lane = threadIdx.x & (kTile - 1);
+  const int warp = (threadIdx.x >> 5) & (kSplitWarps - 1);
+  const int tile = threadIdx.x / (kSplitWarps * kTile);
+  const int i = tile * kTile + lane;
+  const bool owner = warp == 0 && i < L.n;  // keeps row i's vectors
+  const int start = __ldg(L.seg_ptr + tile);
+  const int end = __ldg(L.seg_ptr + tile + 1);
+  const int run = (end - start + kSplitWarps - 1) / kSplitWarps;
+  const int s0 = min(end, start + warp * run);
+  const int s1 = min(end, s0 + run);
+  float bi = 0.0f, x = 0.0f;
+  if (owner) {
+    bi = __ldg(b + i);
+    x = __ldg(x0 + i);
+    v[i] = x;
+  }
+  __syncthreads();
+  // (A v)_i for the owner, NaN where the non-finite rule names row i
+  auto apply = [&]() {
+    part[tile][warp][lane] =
+        walk<float, true>(L.seg_off, L.seg_vals, s0, s1, i, L.n, v, lane);
+    bool bad = false;
+    if constexpr (REPAIR)
+      bad = __syncthreads_or(owner && !isfinite(v[i]));
+    else
+      __syncthreads();
+    float acc = 0.0f;
+    if (owner) {
+      acc = part[tile][0][lane];
+#pragma unroll
+      for (int w = 1; w < kSplitWarps; ++w) acc += part[tile][w][lane];
+      for (int k = 0; bad && k < L.K; ++k) {
+        const int off = __ldg(L.offsets + k);
+        const int64_t c = (int64_t)i + off;
+        if (c >= 0 && c < L.n && !isfinite(v[c]) &&
+            !holds(L.seg_off, start, end, off))
+          acc = __int_as_float(0x7fffffff);
+      }
+    }
+    return acc;
+  };
+  float r = __fsub_rn(bi, apply());
+  float p = r;
+  x = __fadd_rn(x, __fmul_rn(s.alpha[0], p));
+  for (int k = 1; k < s.deg; ++k) {
+    __syncthreads();  // every warp has read v and every owner its parts
+    if (owner) v[i] = p;
+    __syncthreads();
+    const float z = apply();
+    r = __fsub_rn(r, __fmul_rn(s.alpha[k - 1], z));
+    p = __fadd_rn(r, __fmul_rn(s.beta[k - 1], p));
+    x = __fadd_rn(x, __fmul_rn(s.alpha[k], p));
+  }
+  if (owner) out[i] = x;
+}
+
 }  // namespace
 
 // seg_ptr [n_tiles+1] int32, seg_off [n_segs] int32, seg_vals [n_segs, 32]
@@ -448,4 +563,34 @@ extern "C" int dia_spmv_bf16(const void* seg_ptr, const void* seg_off,
   return launch<__nv_bfloat16>(seg_ptr, seg_off, seg_vals, n, split,
                                offsets, K, state, x, b, d, omega, out,
                                stream);
+}
+
+// The Chebyshev form on an f32 layout of n <= 128 rows (split shape):
+// seg_ptr, seg_off, seg_vals and offsets [K] as above, `repair` != 0
+// where the layout needs the non-finite rule; b [n] and x [n] f32 on the
+// device; alpha [deg] and beta [deg - 1] f32 on the host (copied into the
+// launch's arguments), 1 <= deg <= 32; out [n] f32, neither b nor x.
+// Refuses (cudaErrorInvalidValue) a shape past the block; returns
+// cudaGetLastError().
+extern "C" int dia_chebyshev_f32(const void* seg_ptr, const void* seg_off,
+                                 const void* seg_vals, int n,
+                                 const void* offsets, int K, int repair,
+                                 const void* b, const void* x,
+                                 const float* alpha, const float* beta,
+                                 int deg, void* out, void* stream) {
+  if (n < 1 || n > kChebRows || K < 1 || deg < 1 || deg > kChebMaxDeg)
+    return (int)cudaErrorInvalidValue;
+  ChebSchedule s{};
+  for (int k = 0; k < deg; ++k) s.alpha[k] = alpha[k];
+  for (int k = 0; k + 1 < deg; ++k) s.beta[k] = beta[k];
+  s.deg = deg;
+  const Layout<float> L{(const int*)seg_ptr, (const int*)seg_off,
+                        (const float*)seg_vals, (const int*)offsets,
+                        nullptr, n, K};
+  const int threads = ((n - 1) / kTile + 1) * kSplitWarps * kTile;
+  auto kernel = repair ? dia_tiles_chebyshev_kernel<true>
+                       : dia_tiles_chebyshev_kernel<false>;
+  kernel<<<1, threads, 0, (cudaStream_t)stream>>>(
+      L, (const float*)b, (const float*)x, s, (float*)out);
+  return (int)cudaGetLastError();
 }

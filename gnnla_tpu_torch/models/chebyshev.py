@@ -14,15 +14,26 @@ beta]):
 
 The vertex update consumes the old alpha before the global update
 refreshes it. The fused form runs the same recurrence on the operator's
-matvec, with the scalars in Python floats.
+matvec, with the scalars in Python floats; on an operator with a
+one-launch form of it (K1's Chebyshev form, `DiaKernelOperator.chebyshev`,
+on a level small enough for one CUDA block) it hands the whole recurrence
+to that launch, which gives the same bits.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import torch
 
 from gnnla_tpu_torch.core import GNBlock, GraphState
 from gnnla_tpu_torch.ops.sparse import SparseOperator
+from gnnla_tpu_torch.utils.program import count
+
+# Every `chebyshev` call, and those of them that ran as one launch of the
+# operator's Chebyshev form (through `count`, so a graph's replays add
+# theirs)
+CHEB_TALLY = SimpleNamespace(calls=0, one_launch=0)
 
 _B, _X, _R, _P = 0, 1, 2, 3  # vertex feature columns
 
@@ -113,22 +124,42 @@ def chebyshev_gnn(op: SparseOperator, b: torch.Tensor, x: torch.Tensor, *,
     return state.vertices[:, _X]
 
 
-def chebyshev(op, b: torch.Tensor, x: torch.Tensor, *, c: float, d: float,
-              deg: int) -> torch.Tensor:
-    """Degree-`deg` Chebyshev recurrence on fused SpMVs (same k == 2 and
-    k > 2 beta formulas as the JAX package)."""
-    b, x = b.reshape(-1), x.reshape(-1)
-    if deg <= 0:
-        return x
-    r = b - op.matvec(x)
+def chebyshev_scalars(c: float, d: float, deg: int):
+    """(alpha_1 .. alpha_deg, beta_2 .. beta_deg) of the degree-`deg`
+    recurrence, in Python floats (same k == 2 and k > 2 beta formulas as
+    the JAX package)."""
     alpha = 1.0 / d
-    p = r
-    x = x + alpha * p
+    alphas, betas = [alpha], []
     for k in range(2, deg + 1):
-        z = op.matvec(p)
-        r = r - alpha * z
         beta = 0.5 * (c * alpha) ** 2 if k == 2 else ((c * alpha) / 2.0) ** 2
         alpha = 1.0 / (d - beta / alpha)
-        p = r + beta * p
-        x = x + alpha * p
+        alphas.append(alpha)
+        betas.append(beta)
+    return alphas, betas
+
+
+def chebyshev(op, b: torch.Tensor, x: torch.Tensor, *, c: float, d: float,
+              deg: int) -> torch.Tensor:
+    """Degree-`deg` Chebyshev recurrence on fused SpMVs, with the scalars
+    of `chebyshev_scalars`.
+
+    An operator with a one-launch form of the recurrence (K1's
+    `chebyshev`) runs it as one launch, with the same bits, where it
+    takes the vectors, the shape and the degree (`takes_chebyshev`)."""
+    b, x = b.reshape(-1), x.reshape(-1)
+    count(CHEB_TALLY, "calls")
+    if deg <= 0:
+        return x
+    alphas, betas = chebyshev_scalars(c, d, deg)
+    if hasattr(op, "takes_chebyshev") and op.takes_chebyshev(b, x, deg):
+        count(CHEB_TALLY, "one_launch")
+        return op.chebyshev(b, x, alphas, betas)
+    r = b - op.matvec(x)
+    p = r
+    x = x + alphas[0] * p
+    for k in range(1, deg):
+        z = op.matvec(p)
+        r = r - alphas[k - 1] * z
+        p = r + betas[k - 1] * p
+        x = x + alphas[k] * p
     return x

@@ -56,6 +56,17 @@ chain does, so they give its bits. They have no backward: `jacobi` and
 `residual` (`models/`) take them only when autograd needs nothing of the
 sweep (`DiaKernelOperator.fuses`).
 
+On an operator small enough for one CUDA block (at most `CHEB_ROWS` rows
+in f32, the split form's 8 warps a tile: a multigrid hierarchy's
+coarsest level), K1's Chebyshev form runs a whole degree-`deg` Chebyshev
+recurrence in one launch (`DiaKernelOperator.chebyshev`): the deg applies
+and the vector updates between them, which the eager chain of
+`models/chebyshev.py` runs as deg K1 launches and 3 + 6 (deg - 1)
+elementwise kernels. It takes the chain's alpha and beta, rounded to f32
+as PyTorch rounds a Python scalar in an f32 product, and each apply sums
+as K1's split form, so the form gives the chain's bits.
+`models.chebyshev` takes it where `takes_chebyshev` says so.
+
 The TPU's tile fitting (`fit_dia_tile`) and halo-padded layout have no
 counterpart: they exist for the TPU's VMEM. The kernel takes plain [n]
 vectors; its bounds guard replaces the halo padding.
@@ -63,6 +74,7 @@ vectors; its bounds guard replaces the halo padding.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -79,6 +91,9 @@ TILE = 32  # rows per tile: a warp's rows (csrc/dia_spmv.cu kTile)
 # below this many tiles (4 warps for each of an H100's 132 SMs) the kernel
 # splits each tile's segments across the 8 warps of a block
 SPLIT_TILES = 4 * 132
+# the Chebyshev form (csrc/dia_spmv.cu): the rows of one block of 1,024
+# threads at 8 warps a tile; the degrees its launch holds
+CHEB_ROWS, CHEB_MAX_DEG = 4 * TILE, 32
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -220,6 +235,49 @@ def dia_tiles_spmv_cuda(tiles: DiaTiles, x: torch.Tensor,
     return out
 
 
+def chebyshev_fits(tiles: DiaTiles, deg: int) -> bool:
+    """Whether K1's Chebyshev form takes a degree-`deg` recurrence on the
+    layout `tiles`: 1 <= deg <= CHEB_MAX_DEG, f32 values, the split shape
+    (whose sums the form repeats) and at most CHEB_ROWS rows."""
+    return (1 <= deg <= CHEB_MAX_DEG and tiles.split
+            and tiles.seg_vals.dtype == torch.float32
+            and 1 <= tiles.n <= CHEB_ROWS)
+
+
+def dia_tiles_chebyshev_cuda(tiles: DiaTiles, b: torch.Tensor,
+                             x: torch.Tensor, alphas: Sequence[float],
+                             betas: Sequence[float]) -> torch.Tensor:
+    """Launch K1's Chebyshev form into a new vector: the degree
+    len(alphas) recurrence from x on A's compact layout `tiles` (which
+    `chebyshev_fits` takes) for b, with alpha_1 .. alpha_deg and beta_2 ..
+    beta_deg (`models.chebyshev.chebyshev_scalars`). Each travels as
+    ctypes' f32: C's cast of the double, to nearest, which is how PyTorch
+    casts a Python scalar in an f32 product. b and x contiguous f32 [n]
+    vectors on the layout's CUDA device."""
+    _check_operands(tiles, x)
+    deg = len(alphas)
+    _require(chebyshev_fits(tiles, deg) and len(betas) == deg - 1,
+             f"the Chebyshev form takes no degree-{deg} recurrence with "
+             f"{len(betas)} betas on {tiles.n} rows of "
+             f"{tiles.seg_vals.dtype}, split={tiles.split}")
+    _require(b.device == x.device and b.dtype == torch.float32
+             and b.shape == x.shape and b.is_contiguous(),
+             "b must be a contiguous float32 vector shaped as x, on x's "
+             "device")
+    out = torch.empty_like(x)
+    f32 = ctypes.c_float * CHEB_MAX_DEG
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.check(lib.dia_chebyshev_f32(
+            tiles.seg_ptr.data_ptr(), tiles.seg_off.data_ptr(),
+            tiles.seg_vals.data_ptr(), tiles.n, tiles.offsets.data_ptr(),
+            tiles.offsets.shape[0], int(tiles.repair), b.data_ptr(),
+            x.data_ptr(), f32(*alphas), f32(*betas), deg, out.data_ptr(),
+            stream), "dia_chebyshev_f32")
+    return out
+
+
 def diags_cotangent(offsets: Tuple[int, ...], ybar: torch.Tensor,
                     x: torch.Tensor) -> torch.Tensor:
     """ddiags[k, i] = ybar[i] * x[i + off_k], zero where i + off_k leaves
@@ -269,7 +327,8 @@ class DiaKernelOperator:
     backward (x's cotangent is one more launch, on the transposed
     layout); it never moves on the CPU path, which runs the plain
     version. `fused_launches` counts those of them that ran a vertex
-    update (`jacobi_sweep`, `residual`), each in place of a plain launch.
+    update (`jacobi_sweep`, `residual`), each in place of a plain launch;
+    the Chebyshev form (`chebyshev`) is one launch in place of deg.
     `rebuilds` counts the compactions after construction (the
     diagonals replaced or updated in place). `diag_dtype` (float32 or
     bfloat16; default: the dtype of `diags`) is the storage of the
@@ -392,23 +451,48 @@ class DiaKernelOperator:
         eager difference on CPU tensors. No autograd (see `fuses`)."""
         return self._apply(x, b)
 
+    def takes_chebyshev(self, b: torch.Tensor, x: torch.Tensor,
+                        deg: int) -> bool:
+        """Whether `chebyshev` takes a degree-`deg` recurrence for b and x:
+        CUDA vectors on the layouts' device that `fuses` takes, and a
+        layout and degree that `chebyshev_fits` takes."""
+        return (x.device.type == "cuda" and x.device == b.device
+                == self.device and self.fuses(b, x)
+                and chebyshev_fits(self.layout(), deg))
+
+    def chebyshev(self, b: torch.Tensor, x: torch.Tensor,
+                  alphas: Sequence[float],
+                  betas: Sequence[float]) -> torch.Tensor:
+        """`models.chebyshev`'s recurrence from x for b with its scalars
+        (degree len(alphas)): K1's Chebyshev form, one launch, counted,
+        the eager chain's bits (see the module doc); where
+        `takes_chebyshev` holds. No autograd."""
+        return self._enqueue(lambda: dia_tiles_chebyshev_cuda(
+            self.layout(), b.contiguous(), x.contiguous(), alphas, betas))
+
     def _apply(self, x, b=None, d=None, omega=0.0) -> torch.Tensor:
         """A x, b - A x or x + (omega / d) * (b - A x) (as b and d are
-        given): one K1 launch on a CUDA tensor, counted, its host enqueue a
-        span while a profiler records; the plain version and the eager
-        chain on a CPU tensor."""
+        given): one K1 launch on a CUDA tensor; the plain version and the
+        eager chain on a CPU tensor."""
         if x.device.type == "cpu":
             y = dia_matvec(self.diags, self.offsets, x)
             if b is None:
                 return y
             return b - y if d is None else x + (omega / d) * (b - y)
         update = () if b is None else (b, d, omega)
+        return self._enqueue(lambda: dia_tiles_spmv_cuda(
+            self.layout(), x, *update), fused=bool(update))
+
+    def _enqueue(self, launch, fused: bool = False) -> torch.Tensor:
+        """`launch()`, one K1 launch: counted (in `fused_launches` too
+        where `fused`), its host enqueue a span while a profiler
+        records."""
         state = (span_begin("k1.launch", host_only=True)
                  if _profiler._is_profiler_enabled else None)
         try:
-            out = dia_tiles_spmv_cuda(self.layout(), x, *update)
+            out = launch()
             count(self, "launches")
-            if update:
+            if fused:
                 count(self, "fused_launches")
         finally:
             span_end(state)

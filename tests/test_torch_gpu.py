@@ -590,8 +590,9 @@ def test_stencil_spmv_grads_on_the_card(cuda, n_steps):
 
 def test_mg_pcg_on_the_card(cuda):
     """SA mg_pcg on K1 levels at 64^2: the CPU path's x within 2e-5 and
-    exact K1 launches per level (3 per cycle, 8 at the coarsest, CG's
-    matvec on A_0; one cycle more than iterations)."""
+    exact K1 launches per level (3 per cycle, CG's matvec on A_0, one at
+    the coarsest: its degree-8 Chebyshev in K1's one-launch form; one
+    cycle more than iterations)."""
     from gnnla_tpu_torch.models import (mg_pcg, setup_sa_multigrid,
                                         setup_with_dia_multigrid)
     from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
@@ -610,7 +611,7 @@ def test_mg_pcg_on_the_card(cuda):
     assert all(isinstance(a, DiaKernelOperator) for a in mg.As)
     last = mg.n_levels - 1
     assert [a.launches for a in mg.As] == [
-        11 * (8 if i == last else 3 + (i == 0)) for i in range(last + 1)]
+        11 * (1 if i == last else 3 + (i == 0)) for i in range(last + 1)]
     xc = xs["cpu"]
     assert float((xs[str(cuda)] - xc).abs().max() / xc.abs().max()) < 2e-5
     assert float(hist[-1]) < 1e-5 * float(np.linalg.norm(b))
@@ -625,8 +626,9 @@ def test_mg_pcg_on_k1_and_k2(cuda, max_offsets):
     within 2e-5 (as on K1 alone: each level's sums in another order in
     f32, carried through 10 iterations), exact launches per operator, one
     cycle more than iterations: 3 a cycle on a K2 level (8 at the
-    coarsest), 1 + 1 on each P, K1's as in the test above, and their
-    nonzeros in K2's tally."""
+    coarsest: the degree-8 Chebyshev's applies), 1 + 1 on each P, K1's as
+    in the test above (one at a K1 coarsest: the Chebyshev form), and
+    their nonzeros in K2's tally."""
     from gnnla_tpu_torch.models import (mg_pcg, setup_sa_multigrid,
                                         setup_with_dia_multigrid)
     from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
@@ -657,7 +659,8 @@ def test_mg_pcg_on_k1_and_k2(cuda, max_offsets):
     assert not any(isinstance(op, SparseOperator) for op in mg.As + mg.Ps)
     cycles = 11
     for lvl, a in enumerate(mg.As):
-        per_cycle = 8 if lvl == last else 3 + (lvl == 0)
+        per_cycle = ((8 if on_k2[lvl] else 1) if lvl == last
+                     else 3 + (lvl == 0))
         got = a.fwd.launches if on_k2[lvl] else a.launches
         assert got == cycles * per_cycle, (lvl, got)
     assert [(p.fwd.launches, p.bwd.launches) for p in mg.Ps] == [
@@ -1138,9 +1141,11 @@ def test_dia_fused_forms_give_the_eager_bits(cuda, dtype):
 def test_fused_mg_pcg_program_gives_the_unfused_bits(cuda, monkeypatch):
     """The 2-D SA mg_pcg as a program (captured, then replayed) with K1's
     fused forms gives the unfused solve's x and history bit for bit, with
-    the same K1 launches per level: the fused ones replace plain ones one
-    for one, 3 a cycle on each K1 level that smooths, one cycle more than
-    iterations, and none at the coarsest."""
+    the same K1 launches per level but the coarsest: the fused ones
+    replace plain ones one for one, 3 a cycle on each K1 level that
+    smooths, one cycle more than iterations, and none at the coarsest,
+    whose degree-8 Chebyshev is one launch of K1's Chebyshev form a cycle
+    in place of 8 (`fuses` false takes the form away too)."""
     from gnnla_tpu_torch.models.krylov import mg_pcg
     from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
     from gnnla_tpu_torch.utils.program import program
@@ -1169,10 +1174,174 @@ def test_fused_mg_pcg_program_gives_the_unfused_bits(cuda, monkeypatch):
     (x_u, h_u), counts_u = runs[False]
     assert torch.equal(x_f, x_u) and torch.equal(h_f, h_u)
     cycles = 3 * (kw["n_iters"] + 1)  # three calls
-    assert [c[0] for c in counts_f] == [c[0] for c in counts_u]
+    assert [c[0] for c in counts_f[:-1]] == [c[0] for c in counts_u[:-1]]
+    assert (counts_f[-1][0], counts_u[-1][0]) == (cycles, 8 * cycles)
     assert [c[1] for c in counts_u] == [0] * len(k1)
     assert [c[1] for c in counts_f] == [
         0 if a is last else 3 * cycles for a in k1]
+
+
+def _cheb_operator(n, seed, dev):
+    """A K1 operator of n rows with random values, diagonally dominant
+    (its diagonal the row's absolute sum + 1): dense up to 12 rows (a
+    Galerkin coarsest's band), past them on the diagonals 0, +-1, +-32,
+    +-33; and the (c, d) of its Gershgorin interval."""
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+
+    offsets = (tuple(range(1 - n, n)) if n <= 12
+               else (-33, -32, -1, 0, 1, 32, 33))
+    gen = np.random.default_rng(seed)
+    diags = gen.uniform(-1.0, 1.0, (len(offsets), n))
+    for k, off in enumerate(offsets):  # zero where i + off leaves [0, n)
+        diags[k, :max(0, -off)] = 0.0
+        diags[k, min(n, n - off):] = 0.0
+    k0 = offsets.index(0)
+    diags[k0] = 0.0
+    radius = np.abs(diags).sum(0)
+    diags[k0] = radius + 1.0
+    lo, hi = float((diags[k0] - radius).min()), float(
+        (diags[k0] + radius).max())
+    op = DiaKernelOperator(torch.from_numpy(diags.astype(np.float32)).to(dev),
+                           offsets, n, int(np.count_nonzero(diags)))
+    return op, 0.5 * (hi - lo), 0.5 * (hi + lo)
+
+
+def _cheb_both(op, b, x, monkeypatch, **cheb):
+    """(the form's x, the eager chain's x on the same K1 operator), with
+    each one's K1 launches and `CHEB_TALLY.one_launch` counts."""
+    import importlib
+
+    from gnnla_tpu_torch.models import chebyshev
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+
+    tally = importlib.import_module(
+        "gnnla_tpu_torch.models.chebyshev").CHEB_TALLY
+    out = []
+    for form in (True, False):
+        if not form:
+            monkeypatch.setattr(DiaKernelOperator, "takes_chebyshev",
+                                lambda self, *a: False)
+        before = (op.launches, tally.one_launch)
+        y = chebyshev(op, b, x, **cheb)
+        out.append((y, op.launches - before[0],
+                    tally.one_launch - before[1]))
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("deg", [0, 1, 2, 3, 8])
+@pytest.mark.parametrize("rows", [1, 6, 12, 128])
+def test_chebyshev_form_gives_the_eager_bits(cuda, monkeypatch, rows, deg):
+    """K1's Chebyshev form (`chebyshev` on a K1 operator of at most one
+    block's 128 rows) against the eager chain on the same operator (deg
+    K1 launches and the vector updates between them): x bit for bit, one
+    launch and one count of `one_launch` against deg launches; degree 0
+    launches nothing and gives x back."""
+    from gnnla_tpu_torch.ops.dia_spmv import chebyshev_fits
+
+    op, c, d = _cheb_operator(rows, rows + deg, cuda)
+    assert chebyshev_fits(op.layout(), max(deg, 1))
+    b, x = _rand(rows, 1, cuda), _rand(rows, 2, cuda)
+    (got, n_form, one), (want, n_eager, zero) = _cheb_both(
+        op, b, x, monkeypatch, c=c, d=d, deg=deg)
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(want).all())
+    assert (n_form, one, n_eager, zero) == ((1, 1, deg, 0) if deg
+                                            else (0, 0, 0, 0))
+
+
+def test_chebyshev_form_keeps_the_nonfinite_rule(cuda, monkeypatch):
+    """On a 100-row operator whose diagonals +32 and +33 hold values in
+    the first tile's rows only and -33 in the third's (so the other tiles
+    skip segments that their rows reach), with inf, -inf and NaN in x at
+    columns some rows reach only through a skipped segment: the form's
+    NaN rows are the eager chain's, and every other entry its bits; so
+    too on a finite x and on a zero x (the first apply runs on it)."""
+    from chip_smoke import nonfinite_probe
+    from gnnla_tpu_torch.ops.dia_spmv import (DiaKernelOperator,
+                                              chebyshev_fits)
+
+    dense, c, d = _cheb_operator(100, 9, cuda)
+    diags = dense.diags.clone()
+    for off in (32, 33):
+        diags[dense.offsets.index(off), 32:] = 0.0
+    diags[dense.offsets.index(-33), :64] = 0.0
+    diags[dense.offsets.index(-33), 96:] = 0.0
+    op = DiaKernelOperator(diags, dense.offsets, 100,
+                           int(diags.ne(0).sum()))
+    assert op.tiles.repair and chebyshev_fits(op.layout(), 8)
+    cols, _ = nonfinite_probe(op.tiles, 3, 0)
+    assert len(cols) == 3
+    b, x = _rand(op.n, 3, cuda), _rand(op.n, 4, cuda)
+    bad = x.clone()
+    bad[cols] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                             device=cuda)
+    for xx in (x, torch.zeros_like(x), bad):
+        for deg in (1, 3, 8):  # the NaN rows spread with the degree
+            (got, n_form, _), (want, _, _) = _cheb_both(
+                op, b, xx, monkeypatch, c=c, d=d, deg=deg)
+            _same_bits(got, want)
+            assert n_form == 1
+            assert bool(torch.isnan(want).any()) == (xx is bad)
+    assert op.tiles.state.tolist() == [0, 0]
+
+
+def test_chebyshev_past_the_form_takes_plain_launches(cuda, monkeypatch):
+    """One row past one block (129 rows of the 1-D Laplacian): the eager
+    chain, deg K1 launches, no count of `one_launch`; with one row fewer
+    the form, one launch, with the chain's bits."""
+    from gnnla_tpu_torch.ops.dia import to_dia
+    from gnnla_tpu_torch.ops.dia_spmv import (chebyshev_fits,
+                                              dia_kernel_operator)
+    from gnnla_tpu_torch.problems import laplacian_nd
+
+    def k1(n):
+        return dia_kernel_operator(to_dia(laplacian_nd((n,), device=cuda)[0]))
+
+    for op, launches in ((k1(129), 8), (k1(128), 1)):
+        assert chebyshev_fits(op.layout(), 8) == (launches == 1)
+        b = _rand(op.n, 5, cuda)
+        (got, n, one), (want, _, _) = _cheb_both(
+            op, b, torch.zeros_like(b), monkeypatch, c=1.9, d=2.1, deg=8)
+        assert (n, one) == (launches, int(launches == 1))
+        assert torch.equal(got, want)
+
+
+def test_chebyshev_form_replays_in_a_captured_mg_pcg(cuda, monkeypatch):
+    """program(mg_pcg) on the 64^2 SA hierarchy (coarsest 12 rows on K1):
+    the capture and each replay give the eager mg_pcg's x and history bit
+    for bit, with the form and without it (the eager chain); each call,
+    replays too, adds one form launch and one count of `calls` and of
+    `one_launch` a cycle."""
+    import importlib
+
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.ops.dia_spmv import DiaKernelOperator
+    from gnnla_tpu_torch.utils.program import program
+
+    tally = importlib.import_module(
+        "gnnla_tpu_torch.models.chebyshev").CHEB_TALLY
+    mg, b, x0, kw = _sa_solve(cuda, 8)
+    last = mg.As[-1]
+    assert isinstance(last, DiaKernelOperator) and last.n == 12
+    cycles = kw["n_iters"] + 1
+    prog = program(mg_pcg)
+    last.launches = 0
+    before = (tally.calls, tally.one_launch)
+    outs = [prog(mg, b, x0, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert (prog.captures, prog.replays) == (1, 2)
+    assert last.launches == 3 * cycles
+    assert (tally.calls - before[0], tally.one_launch - before[1]) == (
+        3 * cycles, 3 * cycles)
+    eager = mg_pcg(mg, b, x0, **kw)
+    monkeypatch.setattr(DiaKernelOperator, "takes_chebyshev",
+                        lambda self, *a: False)
+    chain = mg_pcg(mg, b, x0, **kw)
+    torch.cuda.synchronize()
+    for x, hist in outs + [chain]:
+        assert torch.equal(x, eager[0]) and torch.equal(hist, eager[1])
 
 
 # ---------------------------------------------------------- the GN forms
