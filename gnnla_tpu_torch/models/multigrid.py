@@ -214,26 +214,32 @@ def multigrid_cycle(setup: MultigridSetup, b: torch.Tensor, x: torch.Tensor,
     `mg.cycle`, each visit of level l the span `mg.level<l>` (inclusive
     of the deeper levels; `utils/program.py`)."""
     b, x = b.reshape(-1), x.reshape(-1)
-    L = setup.n_levels
     coarse_c = setup.coarse_c if coarse_c is None else coarse_c
     coarse_d = setup.coarse_d if coarse_d is None else coarse_d
-
-    def cycle(level, b, x):
-        with span("mg.level", level):
-            A, d = setup.As[level], setup.diags[level]
-            if level == L - 1:
-                return chebyshev(A, b, x, c=coarse_c, d=coarse_d,
-                                 deg=coarse_deg)
-            x = jacobi(A, b, x, omega=omega, n_iters=n_pre, diag=d)
-            P = setup.Ps[level]
-            for _ in range(gamma):
-                rc = P.rmatvec(residual(A, b, x))
-                xc = cycle(level + 1, rc, torch.zeros_like(rc))
-                x = x + P.matvec(xc)
-            return jacobi(A, b, x, omega=omega, n_iters=n_post, diag=d)
-
+    opts = (n_pre, n_post, omega, coarse_deg, coarse_c, coarse_d, gamma)
     with span("mg.cycle"):
-        return cycle(0, b, x)
+        return _cycle_level(setup, 0, b, x, opts)
+
+
+def _cycle_level(setup: MultigridSetup, level: int, b: torch.Tensor,
+                 x: torch.Tensor, opts: tuple) -> torch.Tensor:
+    """Level `level` of `multigrid_cycle` and the levels below it. A
+    module function and not a closure that calls itself: such a closure
+    is a reference cycle holding `setup` until the cyclic collector runs,
+    and a dropped hierarchy is freed at once."""
+    n_pre, n_post, omega, coarse_deg, coarse_c, coarse_d, gamma = opts
+    with span("mg.level", level):
+        A, d = setup.As[level], setup.diags[level]
+        if level == setup.n_levels - 1:
+            return chebyshev(A, b, x, c=coarse_c, d=coarse_d, deg=coarse_deg)
+        x = jacobi(A, b, x, omega=omega, n_iters=n_pre, diag=d)
+        P = setup.Ps[level]
+        for _ in range(gamma):
+            rc = P.rmatvec(residual(A, b, x))
+            xc = _cycle_level(setup, level + 1, rc, torch.zeros_like(rc),
+                              opts)
+            x = x + P.matvec(xc)
+        return jacobi(A, b, x, omega=omega, n_iters=n_post, diag=d)
 
 
 def multigrid_solve(setup: MultigridSetup, b: torch.Tensor, x: torch.Tensor,

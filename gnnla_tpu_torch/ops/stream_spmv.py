@@ -38,6 +38,7 @@ package builds a transposed pack. The TPU's multi-RHS relayout ([t, M*8,
 
 from __future__ import annotations
 
+import weakref
 from bisect import bisect_left
 from types import SimpleNamespace
 from typing import Optional, Tuple
@@ -327,7 +328,8 @@ class CsrSpMV:
     `launches` counts K2 launches and `launches_mm` K3 launches, backward
     ones included; neither moves on the CPU path, which runs the plain
     version. `transpose` is the CsrSpMV of A^T that the gradient in x runs
-    on (None: no gradient, the JAX package's with_transpose=False).
+    on (None: no gradient, the JAX package's with_transpose=False); A's
+    holds A^T's, and A^T's refers back to A's weakly (`link_transposes`).
     `row_blocks` are K2's (`csr_row_blocks`, built here once),
     `long_rows` counts the rows a whole CUDA block sums, and `warp_rows`
     and `warp_nnz` the rows and nonzeros of its warp blocks, which each
@@ -346,9 +348,14 @@ class CsrSpMV:
         self.warp_rows = int(self.row_blocks.diff()[warp].sum())
         self.warp_nnz = int(self.row_ptr[self.row_blocks.long()].diff()[
             warp].sum())
-        self.transpose = None
+        self._transpose = None
         self.launches = 0
         self.launches_mm = 0
+
+    @property
+    def transpose(self) -> Optional["CsrSpMV"]:
+        t = self._transpose
+        return t() if isinstance(t, weakref.ref) else t
 
     def plain(self, x: torch.Tensor,
               vals: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -393,5 +400,9 @@ class CsrSpMV:
 def link_transposes(fwd: CsrSpMV, bwd: CsrSpMV) -> None:
     """Make fwd and bwd (the CSRs of A and A^T) each other's transpose,
     so each direction's gradient in x runs on the other: the mirrored VJP
-    of the JAX `apply_t` (pallas_stream.py:964-980)."""
-    fwd.transpose, bwd.transpose = bwd, fwd
+    of the JAX `apply_t` (pallas_stream.py:964-980). fwd holds bwd, and
+    bwd refers to fwd weakly: the pair is no reference cycle, so an
+    operator that drops them frees their device memory at once, not at
+    the next cyclic collection. Whoever holds bwd holds fwd too (the
+    operators hold both)."""
+    fwd._transpose, bwd._transpose = bwd, weakref.ref(fwd)

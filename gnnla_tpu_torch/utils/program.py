@@ -25,10 +25,27 @@ change in place, but a tensor replaced by another needs a new setup
 object (a kernel layout derived from data is covered by a guard, below).
 `fn` must write into none of its tensor inputs, as a JAX function cannot.
 
+Lifetime. A program keeps a graph only while every static object it was
+captured for lives (the elements of static tuples and lists included):
+it holds them weakly, and when one is collected the graphs captured for
+it leave the cache, with their input buffers, output and memory pool, so
+a caller that sets up a new operator for each solve and drops the old one
+holds one graph, not one a solve. A static object that cannot be weakly
+referenced (a dict, a named tuple) is held strongly, as long as the
+program. A weak reference dies before its object's memory can be reused,
+so a new object that takes a dead one's `id` never replays the dead one's
+graph. A graph released while a capture runs is destroyed at the
+program's next call outside one (destroying a graph during a capture
+invalidates the capture). `released` counts the graphs dropped so, `live`
+those held.
+
 On a CUDA device the first call with a key runs `fn` once on a side
 stream (the warm-up PyTorch's graph documentation requires; the kernel
 library builds there and the kernels' one-time attributes are set) and
-returns that result, then captures one call under `torch.no_grad()`. Each
+returns that result, then captures one call under `torch.no_grad()`. The
+side stream is one a device, kept for every warm-up: PyTorch gives each
+stream that calls cuBLAS a workspace of its own (32 MiB on an H100) and
+keeps it, so a new stream a warm-up would add one a capture. Each
 later call copies its inputs into the graph's input buffers, replays, and
 returns a clone of the graph's output, so no two calls alias. Inside a
 capture that is already running (or inside another program's warm-up) a
@@ -82,6 +99,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import gc
+import sys
+import weakref
 from time import perf_counter
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -96,6 +115,8 @@ _INSIDE: contextvars.ContextVar = contextvars.ContextVar(
     "gnnla_program_inside", default=False)
 _VALUE_TYPES = (type(None), bool, int, float, complex, str, torch.dtype,
                 torch.device)
+# the warm-ups' side stream of each device
+_SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 PREFIX = "gnnla."  # the spans' and stages' names in a profiler's trace
 # the names of the host spans and stages open in this context, innermost last
@@ -319,6 +340,13 @@ def _static_key(a):
     return ("id", id(a))
 
 
+def _objects(a) -> list:
+    """The static objects that `_static_key` keys by identity in `a`."""
+    if type(a) in (tuple, list):
+        return [o for v in a for o in _objects(v)]
+    return [] if isinstance(a, _VALUE_TYPES) else [a]
+
+
 def _tensors(out) -> List[torch.Tensor]:
     if isinstance(out, torch.Tensor):
         return [out]
@@ -337,15 +365,17 @@ def _clone(out):
 
 class _Graph:
     """One captured call: the graph, its input buffers, its output, what
-    the capture recorded, and the static arguments it was captured for
-    (held, so that their identities stay theirs)."""
+    the capture recorded, and the static objects it was captured for:
+    weak references to them (`watch`), or the objects themselves where
+    they cannot be weakly referenced (`held`)."""
 
-    def __init__(self, graph, inputs, out, record, statics):
+    def __init__(self, graph, inputs, out, record):
         self.graph = graph
         self.inputs = inputs
         self.out = out
         self.record = record
-        self.statics = statics
+        self.watch: List[weakref.ref] = []
+        self.held: List[Any] = []
 
     def replay(self, tensors):
         for buf, t in zip(self.inputs, tensors):
@@ -375,15 +405,23 @@ class Program:
     """`fn` as a program (see the module doc). `captures` counts every
     capture: a new key's, a recapture after a guard's mismatch, and the
     instrumented graph of the first call while a profiler records (the
-    key holds that flag); `replays` counts the replays. The call that
+    key holds that flag); `replays` counts the replays; `released` the
+    graphs dropped because a static object they were captured for was
+    collected; `live` is the number of graphs held. The call that
     captures returns the result of its warm-up: so does the first call
     with a key, and so does the first traced call."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
         self._graphs: Dict[tuple, _Graph] = {}
+        self._dead: List[_Graph] = []   # released during a capture
         self.captures = 0
         self.replays = 0
+        self.released = 0
+
+    @property
+    def live(self) -> int:
+        return len(self._graphs)
 
     def __call__(self, *args, **kwargs):
         idx = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
@@ -400,6 +438,8 @@ class Program:
         with torch.cuda.device(dev):
             if _INSIDE.get() or torch.cuda.is_current_stream_capturing():
                 return self.fn(*args, **kwargs)
+            if self._dead:
+                self._dead.clear()
             if any(args[i].requires_grad for i in idx):
                 raise NotImplementedError(
                     "a program runs without autograd: an input requires "
@@ -424,13 +464,46 @@ class Program:
                 return (g.replay_traced(tensors) if traced
                         else g.replay(tensors))
             out = self._warm_up(dev, args, kwargs)
-            self._graphs[key] = self._capture(args, kwargs, idx)
+            statics = [a for i, a in enumerate(args) if i not in idx]
+            self._keep(key, self._capture(args, kwargs, idx),
+                       _objects(statics + list(kwargs.values())))
             return out
+
+    def _keep(self, key: tuple, g: _Graph, statics: list) -> None:
+        """Cache `g` under `key` while each of `statics` lives: a weak
+        reference to each, whose callback releases the key."""
+        self._graphs[key] = g
+
+        def dead(_, prog=weakref.ref(self), finalizing=sys.is_finalizing):
+            p = prog()
+            if p is not None and not finalizing():  # nothing at exit
+                p._release(key)
+
+        for a in statics:
+            try:
+                g.watch.append(weakref.ref(a, dead))
+            except TypeError:
+                g.held.append(a)
+
+    def _release(self, key: tuple) -> None:
+        """Drop the graph under `key`: a static object it was captured
+        for has been collected. Inside a capture the graph is kept for
+        the next call to destroy."""
+        g = self._graphs.pop(key, None)
+        if g is None:
+            return
+        self.released += 1
+        if _CAPTURE.get() is not None or (
+                torch.cuda.is_initialized()
+                and torch.cuda.is_current_stream_capturing()):
+            self._dead.append(g)
 
     @stage("program.warmup")
     def _warm_up(self, dev, args, kwargs):
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _SIDE.get(dev)
+        if side is None:
+            side = _SIDE[dev] = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         token = _INSIDE.set(True)
         try:
@@ -455,9 +528,7 @@ class Program:
                 torch.cuda.graph(graph):
             out = self.fn(*call, **kwargs)
         self.captures += 1
-        statics = ([a for i, a in enumerate(args) if i not in idx],
-                   dict(kwargs))
-        return _Graph(graph, inputs, out, record, statics)
+        return _Graph(graph, inputs, out, record)
 
 
 def program(fn: Callable) -> Program:

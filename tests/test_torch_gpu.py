@@ -2129,6 +2129,95 @@ def test_no_cyclic_gc_runs_inside_a_capture(cuda):
     assert seen == [False] and gc.isenabled()
 
 
+def _sa_hierarchy(dev, field_seed):
+    """The SA hierarchy on K1 and K2 of a 64^2 log-normal diffusion
+    operator (the re-set-up cell's kind, from `field_seed`)."""
+    from gnnla_tpu_torch.models.multigrid import (setup_sa_multigrid,
+                                                  setup_with_dia_multigrid)
+    from gnnla_tpu_torch.ops.sparse import SparseOperator
+    from perfbench.problems import lognormal_fv
+
+    g = lognormal_fv.field((64, 64), 1.0, 0.3,
+                           np.random.default_rng(field_seed))
+    rows, cols, vals, n = lognormal_fv.assemble(np.exp(g))
+    A = SparseOperator.from_coo(rows, cols, vals.astype(np.float32), (n, n),
+                                coalesce=False, device=dev)
+    return setup_with_dia_multigrid(setup_sa_multigrid(A), kernel=True)
+
+
+def test_a_program_releases_the_graphs_of_dropped_hierarchies(cuda):
+    """One program(mg_pcg) over 8 hierarchies set up in turn, each
+    dropped before the next is set up: one graph is held at a time, 7 are
+    released, and the card's allocated memory comes back to within 1 MB
+    of its reading after the first call."""
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.utils.program import program
+
+    b = _rand(64 * 64, 21, cuda)
+    x0 = torch.zeros_like(b)
+    run = program(mg_pcg)
+    base, mg = None, None
+    for k in range(8):
+        mg = None   # the previous hierarchy dropped before the next
+        mg = _sa_hierarchy(cuda, k)
+        x, hist = run(mg, b, x0, n_iters=6)
+        torch.cuda.synchronize()
+        assert float(hist[-1]) < 1e-3 * float(torch.linalg.vector_norm(b))
+        del x, hist
+        if base is None:
+            base = torch.cuda.memory_allocated()
+        assert run.live == 1
+    assert (run.captures, run.released, run.replays) == (8, 7, 0)
+    assert abs(torch.cuda.memory_allocated() - base) <= 2 ** 20
+
+
+def test_a_kept_hierarchy_replays_while_others_are_released(cuda):
+    """A hierarchy the caller keeps is replayed after others have come and
+    gone, with no new capture, and gives the eager solve."""
+    from gnnla_tpu_torch.models.krylov import mg_pcg
+    from gnnla_tpu_torch.utils.program import program
+
+    b = _rand(64 * 64, 22, cuda)
+    x0 = torch.zeros_like(b)
+    kept = _sa_hierarchy(cuda, 100)
+    run = program(mg_pcg)
+    run(kept, b, x0, n_iters=6)
+    for k in range(3):
+        run(_sa_hierarchy(cuda, 101 + k), b, x0, n_iters=6)
+    assert (run.captures, run.released, run.live) == (4, 3, 1)
+    x, hist = run(kept, b, x0, n_iters=6)
+    assert (run.captures, run.replays) == (4, 1)
+    want = mg_pcg(kept, b, x0, n_iters=6)
+    torch.cuda.synchronize()
+    assert torch.equal(x, want[0]) and torch.equal(hist, want[1])
+
+
+def test_an_object_at_a_dead_ones_address_never_replays_its_graph(cuda):
+    """A static object made after another was collected, at the dead one's
+    address (so with its `id`), is captured anew and gives its own
+    result, never the released graph's."""
+    from gnnla_tpu_torch.utils.program import program
+
+    class Scale:
+        def __init__(self, s):
+            self.s = s
+
+    run = program(lambda x, h: x * h.s)
+    x = _rand(256, 23, cuda)
+    h = Scale(2.0)
+    dead = id(h)
+    _close(run(x, h), 2.0 * x)
+    _close(run(x, h), 2.0 * x)
+    del h
+    assert (run.released, run.live) == (1, 0)
+    made = []
+    while len(made) < 10000 and (not made or id(made[-1]) != dead):
+        made.append(Scale(3.0))
+    assert id(made[-1]) == dead
+    _close(run(x, made[-1]), 3.0 * x)
+    assert (run.captures, run.replays) == (2, 1)
+
+
 # ------------------------------------------------------------------ spans
 def _sa_solve(dev, seed):
     """The SA hierarchy of the 64^2 Laplacian with K1 on its banded

@@ -464,3 +464,109 @@ def test_k1_k2_k4_count_through_the_recorder(monkeypatch):
                     ("CsrSpMV", "launches_mm", 1),
                     ("StencilCall", "launches", stencil_kernel.
                      stencil_launches("affine", 3, call.form.form))]
+
+
+# -------------------------------------------------------------- lifetime
+class Static:
+    """A static argument: an object keyed by its identity."""
+
+
+def _kept(p, *statics):
+    """A stand-in graph cached by `p` under the statics' key, as a capture
+    caches it (the graph itself exists only on the card)."""
+    key = (False, tuple(prog._static_key(a) for a in statics), ())
+    g = prog._Graph(None, [], None, prog._Record())
+    p._keep(key, g, prog._objects(list(statics)))
+    return key, g
+
+
+def test_static_objects_are_those_keyed_by_identity():
+    a, b, t = Static(), Static(), torch.zeros(2)
+    got = prog._objects([a, (1, b, [t, "x", None]), 2.0, torch.float32])
+    assert [id(o) for o in got] == [id(a), id(b), id(t)]
+
+
+def test_a_collected_static_releases_its_graphs():
+    """Graphs are held while their statics live: the plain and the traced
+    key of one object both leave when it is collected, another object's
+    graph stays, and `live` counts the rest."""
+    p = Program(lambda *a: None)
+    a, b = Static(), Static()
+    key_a, _ = _kept(p, a)
+    p._keep((True,) + key_a[1:], prog._Graph(None, [], None, prog._Record()),
+            [a])
+    key_b, g_b = _kept(p, b)
+    assert (p.live, p.released) == (3, 0) and g_b.held == []
+    del a
+    assert (p.live, p.released) == (1, 2)
+    assert list(p._graphs) == [key_b] and p._dead == []
+
+
+def test_a_new_object_with_a_dead_ones_id_finds_no_graph():
+    p = Program(lambda *a: None)
+    a = Static()
+    dead_id = id(a)
+    key, _ = _kept(p, a)
+    del a
+    made = []   # kept, so that each new object takes a new block
+    while len(made) < 10000 and (not made or id(made[-1]) != dead_id):
+        made.append(Static())
+    b = made[-1]
+    assert id(b) == dead_id   # CPython handed the freed block out again
+    assert (False, (prog._static_key(b),), ()) == key
+    assert key not in p._graphs and p.released == 1
+
+
+def test_a_static_that_cannot_be_weakly_referenced_is_held():
+    p = Program(lambda *a: None)
+    d = {"n": 1}
+    _, g = _kept(p, d, Static())
+    assert g.held == [d] and len(g.watch) == 1
+
+
+def test_a_graph_replaced_under_its_key_is_not_released_twice():
+    p = Program(lambda *a: None)
+    a = Static()
+    key, _ = _kept(p, a)
+    key2, g2 = _kept(p, a)   # a recapture: the same key, a new graph
+    assert key2 == key and p._graphs[key] is g2 and p.live == 1
+    del a
+    assert (p.live, p.released) == (0, 1)
+
+
+def test_a_release_inside_a_capture_waits_for_the_next_call():
+    """Destroying a graph while a stream captures invalidates the capture:
+    a graph released inside one is kept aside (out of the cache) until
+    the program's next call."""
+    p = Program(lambda *a: None)
+    a = Static()
+    key, g = _kept(p, a)
+    with prog._recording(prog._Record()):
+        del a
+    assert key not in p._graphs and p._dead == [g] and p.released == 1
+    del g
+
+
+def test_a_solved_hierarchy_dies_with_its_last_reference():
+    """After a solve the SA hierarchy holds no reference cycle: dropping
+    the caller's reference frees it at once, with the cyclic collector
+    off, so a program releases its graph then and not at a later
+    collection."""
+    import gc
+    import weakref
+
+    A = t_laplacian_2d(N, device=CPU).eliminate_zeros()
+    mg = tm.setup_with_dia_multigrid(tm.setup_sa_multigrid(A), kernel=True)
+    b = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        N * N).astype(np.float32))
+    refs = [weakref.ref(o) for o in (mg, *mg.As, *mg.Ps)]
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        tk.mg_pcg(mg, b, torch.zeros_like(b), n_iters=3, flip_sign=True)
+        tm.multigrid_solve(mg, b, torch.zeros_like(b), n_cycles=2, gamma=2)
+        del mg
+        assert all(r() is None for r in refs)
+    finally:
+        if was:
+            gc.enable()
